@@ -1,0 +1,98 @@
+"""The port stands alone: telescope_cam_detection_tpu_torch and chip_smoke.py
+import neither JAX, Flax nor the JAX package, and their entry points refuse
+to run on a host without CUDA unless asked for the CPU."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "telescope_cam_detection_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "telescope_cam_detection_tpu")
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN), (path, roots & set(FORBIDDEN))
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
+
+
+def test_port_import_pulls_in_no_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import telescope_cam_detection_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15    # every module was imported
+
+
+def test_entry_points_refuse_without_cuda():
+    """No CUDA here: the default device raises; device='cpu' runs."""
+    from telescope_cam_detection_tpu_torch.device import resolve_device
+    from telescope_cam_detection_tpu_torch.runtime.program import (
+        DetectorProgram, ProgramSpec)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    spec = ProgramSpec(variant="yolox-nano", input_hw=(64, 64))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DetectorProgram(spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    prog = DetectorProgram(spec, device="cpu")
+    rows = prog.detect_batch_rows(np.zeros((1, 64, 64, 3), np.uint8))
+    assert rows.shape == (1, 300, 7)
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = _run_smoke(REPO)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "CUDA is not available" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """Without the port beside it, the script fails and prints no result."""
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
