@@ -6,16 +6,28 @@
 Phases, each printed as it ends; any failure exits non-zero at once:
 
 1. The card's name and power limit; build every CUDA kernel of the main path
-   from the sources in this checkout (``nvcc``, sm_90a).
+   from the sources in this checkout (``nvcc``, sm_90a, one process per
+   source, started together).
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with CUDA-event timings.
-3. The main path: ``DetectorProgram`` serving weights/yolox_s_scene640.npz
+   path's shapes, with CUDA-event timings: K1 (NMS suppression), then K2
+   (fused attention).
+3. The detector path: ``DetectorProgram`` serving weights/yolox_s_scene640.npz
    (YOLOX-S, full width and depth, 640x640 input, fp32, TF32 off) answers
    requests through ``detect_batch_rows`` (the rows behind ``detect_batch``);
    launch counts are read around it, and its rows are held against the same
    program run on the CPU.
 4. Where a request's time goes: CUDA events between the program's stages,
    and the device's busy time from ``torch.profiler``.
+5. The two-stage path with the shipped weights: the detector's rows ->
+   ``rows_to_detections`` -> ``TwoStageDetectionPipeline(device_crops=True)``
+   over a ``SpeciesClassifier`` serving weights/eva02_species.npz
+   (eva02-tiny, 112x112, 16 classes); launch counts are read around it, and
+   its species are held against the same pipeline run on the CPU.
+6. The classifier at its full published width: eva02-large, 336x336, 10,000
+   classes, depth 24, fp32, random weights from a fixed seed, through
+   ``SpeciesClassifier.classify_boxes_device``; launch counts, logits with
+   the kernel against logits with its plain version, a per-stage split and
+   the device's idle share.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the port
@@ -33,12 +45,16 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 WEIGHTS = REPO / "weights" / "yolox_s_scene640.npz"
+EVA_WEIGHTS = REPO / "weights" / "eva02_species.npz"
+EVA_CONFIG = REPO / "weights" / "eva02_species.json"
+TAXONOMY = REPO / "weights" / "species_taxonomy.json"
 INPUT_HW = (640, 640)
 CAPTURE_HW = (1440, 2560)
 REQUESTS = 5
-# H100 SXM published peaks (NVIDIA data sheet): fp32 on the CUDA cores and
-# HBM3 bandwidth, the roofline of bound_ms.
+# H100 SXM published peaks (NVIDIA data sheet): fp32 on the CUDA cores, bf16
+# on the tensor cores (dense) and HBM3 bandwidth, the roofline of bound_ms.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 IOU_PAIR_OPS = 15   # 2 max, 2 min, 2 sub, 2 clamp, mul, add, sub, div, cmp, 2 area
 
@@ -103,16 +119,40 @@ def match_rows(rows_a: np.ndarray, rows_b: np.ndarray, conf: float,
     return matched
 
 
-def phase_build(cuda_nms) -> float:
+def phase_build(modules) -> None:
+    """Build every kernel library, one nvcc per source, all started together.
+    ``modules``: (label, binding module, substring that picks the ptxas
+    lines to print, or None for all)."""
+    import threading
     t0 = time.perf_counter()
-    path = cuda_nms.build()
+    paths, errors = {}, []
+
+    def build(label, mod):
+        try:
+            paths[label] = mod.LIBRARY.build()
+        except Exception as e:        # reported below, fails the run
+            errors.append(f"{label}: {e}")
+
+    threads = [threading.Thread(target=build, args=(label, mod))
+               for label, mod, _ in modules]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, "kernel build failed: " + "; ".join(errors))
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in cuda_nms.BUILD_LOG.splitlines()
-             if "registers" in ln or "smem" in ln]
-    say(f"phase 1 build: {path.name} in {seconds:.2f} s")
-    for ln in ptxas:
-        say(f"  ptxas: {ln}")
-    return seconds
+    for label, mod, pick in modules:
+        say(f"phase 1 build {label}: {paths[label].name} "
+            f"(all builds {seconds:.2f} s, in parallel)")
+        wanted, entry = True, ""
+        for ln in mod.LIBRARY.log.splitlines():
+            if "Compiling entry function" in ln:
+                wanted = pick is None or pick in ln
+                entry = ln.split("'")[1] if "'" in ln else ln
+            elif wanted and ("registers" in ln or "spill" in ln):
+                say(f"  ptxas {label}: {ln.strip().replace('ptxas info    : ', '')}")
+            elif "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln:
+                say(f"  ptxas {label}: SPILLS in {entry}: {ln.strip()}")
 
 
 def random_boxes(rng, b, k, img=640.0, lo=8.0, hi=120.0):
@@ -188,9 +228,9 @@ def phase_kernel(cuda_nms, nms, model, frames_640, device):
 
     b, v = real[0.0]
     bsz, k = v.shape
-    kernel_ms = cuda_time_ms(lambda: cuda_nms.suppress(b, v, 0.45), iters=200)
+    kernel_ms = cuda_time_ms(lambda: cuda_nms.suppress(b, v, 0.45), iters=100)
     plain_ms = cuda_time_ms(lambda: cuda_nms.suppress_reference(b, v, 0.45),
-                            iters=20, warmup=2)
+                            iters=10, warmup=2)
     pairs = bsz * k * (k - 1) / 2
     ops = pairs * IOU_PAIR_OPS
     nbytes = b.numel() * 4 + v.numel() + v.numel()
@@ -300,7 +340,7 @@ def phase_main_path(cuda_nms, program, state, frames_1440, frames_640, card):
     return launches, prog_dev, prog_auto
 
 
-def phase_breakdown(name, prog, frames, capture_hw, iters=20):
+def phase_breakdown(name, prog, frames, capture_hw, iters=10):
     """Device time of each stage of one request, CUDA events between the
     stages of ``DetectorProgram``'s core, run as the program runs them; the
     host clock around the same request gives the device's idle share."""
@@ -357,15 +397,24 @@ def phase_breakdown(name, prog, frames, capture_hw, iters=20):
         + ", ".join(f"{n} {t:.4f}" for n, t in per.items())
         + f"; spans sum {sum(per.values()):.4f}, host wall {wall:.4f}")
 
-    # device busy time of the program's own requests, from the profiler
+    busy, top = profile_busy(
+        lambda: prog.materialize(prog.dispatch_batch(frames), len(frames)), 5)
+    say(f"phase 4 profile transfer={name}: device busy {busy:.4f} ms per "
+        f"request, idle share {max(1.0 - busy / wall, 0.0):.3f} of the "
+        f"unprofiled host wall; top: " + top)
+
+
+def profile_busy(fn, reps: int):
+    """Device busy ms per call of ``fn`` from ``torch.profiler``, and the
+    eight device rows (kernels, copies) that take most of it."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
-    reps = 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            prog.materialize(prog.dispatch_batch(frames), len(frames))
+            fn()
         torch.cuda.synchronize()
-    # device-side rows only (kernels, copies): a CPU op's row repeats the
-    # device time of the kernels it launched
+    # device-side rows only: a CPU op's row repeats the device time of the
+    # kernels it launched
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
 
@@ -375,10 +424,437 @@ def phase_breakdown(name, prog, frames, capture_hw, iters=20):
 
     busy = sum(dev_us(e) for e in events) / reps / 1e3
     top = sorted(events, key=lambda e: -dev_us(e))[:8]
-    say(f"phase 4 profile transfer={name}: device busy {busy:.4f} ms per "
-        f"request, idle share {max(1.0 - busy / wall, 0.0):.3f} of the "
-        f"unprofiled host wall; top: "
-        + "; ".join(f"{e.key[:70]} {dev_us(e) / reps / 1e3:.4f}" for e in top))
+    return busy, "; ".join(f"{e.key[:70]} {dev_us(e) / reps / 1e3:.4f}"
+                           for e in top)
+
+
+def attention_inputs(shape, dtype, device, seed=0, q_scale=1.0):
+    """Seeded normal q, k, v. With q_scale != 1, q and k are rounded to
+    quarters first: every product and partial sum of q.k is then exact in
+    fp32, so the scores are the same in any order of summation and the case
+    tests the softmax alone."""
+    import torch
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+               for _ in range(3))
+    if q_scale != 1.0:
+        q, k = torch.round(q * 4) / 4 * q_scale, torch.round(k * 4) / 4
+    return tuple(x.to(device).to(dtype) for x in (q, k, v))
+
+
+def attention_bound(shape, dtype):
+    """(bound_ms, bound_by, operations, bytes): 4 B H T^2 D operations at the
+    card's peak for the type, 4 B H T D elements moved at its memory rate."""
+    import torch
+    b, t, h, d = shape
+    ops = 4.0 * b * h * t * t * d
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 4.0 * b * h * t * d * itemsize
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    ops_ms, bytes_ms = ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops, nbytes)
+
+
+def phase_attention(cuda_attention, tiny_clf, device):
+    """K2 against its plain version on the card: fp32 within 2e-5, bf16
+    within 2e-2 (rtol = atol), then its timings beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from telescope_cam_detection_tpu_torch.ops.attention import (
+        attention_reference)
+    from telescope_cam_detection_tpu_torch.ops.preprocess import (
+        preprocess_classifier)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ("eva02-large@336, crop bucket 16", (16, 577, 16, 64), f32, 1.0),
+        ("eva02-tiny@112, crop bucket 16", (16, 65, 3, 64), f32, 1.0),
+        ("one key tile multiple", (1, 128, 2, 64), f32, 1.0),
+        ("ragged T, D=48", (1, 130, 1, 48), f32, 1.0),
+        ("D=128", (2, 33, 2, 128), f32, 1.0),
+        ("single token, D=16", (1, 1, 1, 16), f32, 1.0),
+        ("bf16", (2, 577, 4, 64), bf16, 1.0),
+        ("bf16 eva02-large@336, crop bucket 16", (16, 577, 16, 64), bf16, 1.0),
+        # q x 30 puts scores past 88, where exp() overflows fp32 unless the
+        # running maximum is subtracted. q and k are rounded to quarters so
+        # that q.k is exact: at scores of a hundred and more, one fp32
+        # rounding of q.k alone moves a softmax weight by more than 2e-5,
+        # whatever the order of summation.
+        ("scores x 30", (2, 577, 4, 64), f32, 30.0),
+    ]
+    inputs = [(name, attention_inputs(shape, dtype, device, seed=i, q_scale=qs))
+              for i, (name, shape, dtype, qs) in enumerate(cases)]
+    # q, k, v of real blocks of the shipped classifier on a noise crop batch
+    rng = np.random.default_rng(11)
+    crops = torch.from_numpy(rng.integers(0, 256, (16, 96, 80, 3), np.uint8))
+    model = tiny_clf.model
+    with torch.inference_mode():
+        x = model.embed(preprocess_classifier(
+            crops.to(device), (tiny_clf.input_size,) * 2))
+        for i, block in enumerate(model.blocks()):
+            qkv = block.qkv(x, model.rope_cos, model.rope_sin)
+            if i in (0, model.depth - 1):
+                inputs.append((f"shipped eva02-tiny block {i}", qkv))
+            x = block.finish(x, cuda_attention.attention(*qkv))
+
+    max_err = {f32: 0.0, bf16: 0.0}
+    for name, (q, k, v) in inputs:
+        tol = 2e-5 if q.dtype == f32 else 2e-2
+        before = cuda_attention.LAUNCHES
+        got = cuda_attention.attention(q, k, v)
+        torch.cuda.synchronize()
+        check(cuda_attention.LAUNCHES == before + 1, "K2 launch not counted")
+        want = attention_reference(q, k, v)
+        check(got.shape == q.shape and got.dtype == q.dtype,
+              f"K2 output {tuple(got.shape)} {got.dtype}: {name}")
+        check(bool(torch.isfinite(got.float()).all()), f"K2 non-finite: {name}")
+        if name.startswith("scores"):
+            top = float((q.float().permute(0, 2, 1, 3)
+                         @ k.float().permute(0, 2, 3, 1)).max()) / 8.0
+            check(top > 88.0, f"scores x 30 peak at {top:.1f}, not past 88")
+        err = float((got.float() - want.float()).abs().max())
+        max_err[q.dtype] = max(max_err[q.dtype], err)
+        try:
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        except AssertionError as e:
+            raise SmokeFailure(f"K2 differs from its plain version: {name}: {e}")
+        note = ""
+        if name.startswith("eva02-tiny"):
+            want_cpu = cuda_attention.attention(q.cpu(), k.cpu(), v.cpu())
+            try:
+                torch.testing.assert_close(got.cpu(), want_cpu, rtol=tol, atol=tol)
+            except AssertionError as e:
+                raise SmokeFailure(f"K2 differs from the CPU plain version: {e}")
+            note = ", also equal to the CPU plain version"
+        say(f"phase 2 K2 {name} {tuple(q.shape)} {str(q.dtype)[6:]}: within "
+            f"{tol:g} of plain, max abs err {err:.3e}{note}")
+
+    timings = []
+    for shape in ((16, 577, 16, 64), (16, 65, 3, 64)):
+        for dtype in (f32, bf16):
+            q, k, v = attention_inputs(shape, dtype, device, seed=5)
+            qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+            kernel_ms = cuda_time_ms(
+                lambda: cuda_attention.attention(q, k, v), iters=20, warmup=3)
+            plain_ms = cuda_time_ms(
+                lambda: attention_reference(q, k, v), iters=5, warmup=2)
+            library_ms = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                iters=20, warmup=3)
+            bound_ms, bound_by, ops, nbytes = attention_bound(shape, dtype)
+            timings.append({"shape": list(shape), "dtype": str(dtype)[6:],
+                            "ms": kernel_ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by})
+            say(f"phase 2 K2 timing {shape} {str(dtype)[6:]}: kernel_ms "
+                f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms "
+                f"{library_ms:.5f} (F.scaled_dot_product_attention) bound_ms "
+                f"{bound_ms:.5f} ({bound_by}: {ops:.3e} ops, {nbytes:.3e} "
+                f"bytes), {ops / kernel_ms / 1e9:.2f} TFLOP/s")
+    main = timings[0]    # eva02-large@336, crop bucket 16, fp32: the widest
+    return {"name": "attention", "route": "cuda",
+            "source": "telescope_cam_detection_tpu_torch/csrc/attention.cu",
+            "replaces": "telescope_cam_detection_tpu/ops/pallas_attention.py:33",
+            "launches": 0, "max_abs_err": max_err[f32],
+            "max_abs_err_bf16": max_err[bf16],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "shape": main["shape"],
+            "dtype": main["dtype"], "other_shapes": timings[1:]}
+
+
+def fixed_boxes(n, k, n_frames, hw, seed=7):
+    """n seeded boxes [frame, x1, y1, x2, y2] in (k, 5), padding rows -1."""
+    rng = np.random.default_rng(seed)
+    boxes = np.full((k, 5), -1.0, np.float32)
+    side = rng.uniform(120, 420, (n, 2))
+    x1 = rng.uniform(0, hw[1] - side[:, 0])
+    y1 = rng.uniform(0, hw[0] - side[:, 1])
+    boxes[:n] = np.stack([rng.integers(0, n_frames, n), x1, y1,
+                          x1 + side[:, 0], y1 + side[:, 1]], -1)
+    return boxes
+
+
+def check_topk(name, got, want, n):
+    """Raw (top_p, top_i) of the card against another run of the same crops:
+    probabilities within 1e-3, top-1 ids equal (where the top two are more
+    than 2e-3 apart: closer than that, either order is right)."""
+    gp, gi = (x[:n].cpu().numpy() for x in got)
+    wp, wi = (x[:n].cpu().numpy() for x in want)
+    check(bool(np.isfinite(gp).all()) and gp.shape == wp.shape,
+          f"{name}: top-k shape {gp.shape} or non-finite")
+    err = float(np.abs(gp - wp).max())
+    check(err <= 1e-3, f"{name}: probabilities differ by {err:.2e} > 1e-3")
+    clear = (wp[:, 0] - wp[:, 1]) > 2e-3
+    check(bool((gi[clear, 0] == wi[clear, 0]).all()),
+          f"{name}: top-1 ids differ: {gi[:, 0]} vs {wi[:, 0]}")
+    return err, int(clear.sum())
+
+
+_LABEL_EDGES = (0.5, 0.4, 0.3, 0.2)    # hierarchy and pipeline thresholds
+
+
+def compare_annotations(got, want):
+    """Detections annotated on the card against the same ones annotated on
+    the CPU. A detection whose CPU confidences sit within 1e-3 of a label
+    threshold may fall either way and is skipped. Returns (compared,
+    classified)."""
+    compared = classified = 0
+    for g, w in zip(got, want):
+        raw = [p["confidence"] for p in w.get("species_top_k", [])]
+        if any(abs(c - e) < 1e-3 for c in raw for e in _LABEL_EDGES):
+            continue
+        check(("species" in g) == ("species" in w),
+              f"annotated on one device only: {g} vs {w}")
+        compared += 1
+        if "species" not in w:
+            continue
+        classified += 1
+        check(g["species"] == w["species"]
+              and g["taxonomic_level"] == w["taxonomic_level"],
+              f"species {g['species']} vs {w['species']}")
+        check(abs(g["species_confidence"] - w["species_confidence"]) <= 1e-3,
+              "species confidence differs by more than 1e-3")
+        check([p["species_id"] for p in g["species_top_k"]][:1]
+              == [p["species_id"] for p in w["species_top_k"]][:1],
+              "top-1 species id differs")
+    return compared, classified
+
+
+def phase_two_stage(tiny_clf, eva_state, eva_cfg, prog_dev, frames_1440, card):
+    """The two-stage path with the shipped weights. Returns the launches of
+    (K1, K2) on it."""
+    import copy
+    import torch
+    from telescope_cam_detection_tpu_torch.ops import cuda_attention, cuda_nms
+    from telescope_cam_detection_tpu_torch.pipeline import species, two_stage
+    from telescope_cam_detection_tpu_torch.runtime import program
+    depth = tiny_clf.model.depth
+    pipe = two_stage.TwoStageDetectionPipeline(
+        tiny_clf, device_crops=True, crop_batch_size_hw=tiny_clf.input_size)
+    clf_cpu = species.SpeciesClassifier(
+        eva_cfg["variant"], eva_cfg["num_classes"], eva_cfg["input_size"],
+        taxonomy_file=str(TAXONOMY), state_dict=eva_state, device="cpu")
+    pipe_cpu = two_stage.TwoStageDetectionPipeline(
+        clf_cpu, device_crops=True, crop_batch_size_hw=clf_cpu.input_size)
+    served = program.FilterSettings()
+    loose = program.FilterSettings(conf_threshold=0.0, wildlife_only=False)
+    # warm every crop bucket once (first-call algorithm selection)
+    frames_dev = torch.from_numpy(frames_1440[0]).to(tiny_clf.device)
+    for k in species.CROP_BATCH_BUCKETS:
+        tiny_clf.classify_boxes_device(
+            frames_dev, fixed_boxes(k, k, 4, CAPTURE_HW), n_valid=k)
+    torch.cuda.synchronize()
+
+    records, buckets = [], []
+    detect_s = stage2_s = 0.0
+    cuda_nms.LAUNCHES = cuda_attention.LAUNCHES = 0
+    batches0 = tiny_clf.total_batches
+    for i, filt in enumerate((served, served, loose)):
+        prog_dev.update_filters(filt)
+        frames = frames_1440[i]
+        t0 = time.perf_counter()
+        rows = prog_dev.detect_batch_rows(frames)
+        detect_s += time.perf_counter() - t0
+        for frame, r in zip(frames, rows):
+            dets = program.rows_to_detections(r)
+            twin = copy.deepcopy(dets)
+            before = (tiny_clf.total_batches, cuda_attention.LAUNCHES)
+            t0 = time.perf_counter()
+            out = pipe.process_detections(frame, dets)
+            stage2_s += time.perf_counter() - t0
+            n_disp = tiny_clf.total_batches - before[0]
+            check(cuda_attention.LAUNCHES - before[1] == depth * n_disp,
+                  f"K2 launches grew by {cuda_attention.LAUNCHES - before[1]}"
+                  f", not {depth} x {n_disp} dispatches")
+            if n_disp:
+                buckets.append(species.crop_bucket(sum(
+                    1 for d in twin if d["class_id"] in pipe.classify_classes
+                    and min(d["bbox"]["width"], d["bbox"]["height"])
+                    >= pipe.min_crop_size)))
+            records.append((frame, twin, out))
+    k1, k2 = cuda_nms.LAUNCHES, cuda_attention.LAUNCHES
+    dispatches = tiny_clf.total_batches - batches0
+    prog_dev.update_filters(loose)
+    check(k1 == 3, f"{k1} K1 launches for 3 detector dispatches")
+    check(dispatches > 0 and k2 == depth * dispatches,
+          f"{k2} K2 launches, {dispatches} classify dispatches x {depth} blocks")
+    n_class = sum(1 for _, _, out in records for d in out if "species" in d)
+    check(n_class > 0, "no crop was classified on the two-stage path")
+    n_frames = len(records)
+    say(f"phase 5 two-stage, shipped weights ({eva_cfg['variant']}@"
+        f"{eva_cfg['input_size']}, {eva_cfg['num_classes']} classes): "
+        f"{n_frames} frames at {CAPTURE_HW[0]}x{CAPTURE_HW[1]}, "
+        f"{sum(len(o) for _, _, o in records)} detections, {dispatches} "
+        f"classify dispatches at crop buckets {sorted(set(buckets))}, "
+        f"{n_class} detections given a species; K1 launches {k1}, K2 "
+        f"launches {k2} = {depth} x {dispatches}; detector "
+        f"{detect_s * 1e3 / 3:.3f} ms per request of 4 frames, Stage-2 "
+        f"{stage2_s * 1e3 / max(dispatches, 1):.3f} ms per classify dispatch "
+        f"incl. the frame upload, host clock ({card})")
+
+    compared = classified = 0
+    for frame, twin, out in records:
+        want = pipe_cpu.process_detections(frame, twin)
+        c, n = compare_annotations(out, want)
+        compared, classified = compared + c, classified + n
+    check(classified > 0, "no classified detection to compare with the CPU")
+    say(f"phase 5 two-stage: the card's annotations match the CPU pipeline, "
+        f"{compared} detections compared, {classified} with equal species, "
+        f"level and top-1 id and confidence within 1e-3")
+
+    # a direct call with fixed boxes, whatever Stage-1 found
+    boxes = fixed_boxes(13, 16, 4, CAPTURE_HW)
+    before = cuda_attention.LAUNCHES
+    preds = tiny_clf.classify_boxes_device(frames_dev, boxes, n_valid=13)
+    check(cuda_attention.LAUNCHES - before == depth and len(preds) == 13,
+          "direct classify_boxes_device: launches or result count")
+    got = tiny_clf._device_crop_program(
+        frames_dev, torch.from_numpy(boxes).to(tiny_clf.device))
+    want = clf_cpu._device_crop_program(
+        torch.from_numpy(frames_1440[0]), torch.from_numpy(boxes))
+    err, clear = check_topk("direct classify_boxes_device", got, want, 13)
+    say(f"phase 5 direct classify_boxes_device, 13 fixed boxes in bucket 16: "
+        f"{depth} K2 launches, top-10 probabilities within {err:.2e} of the "
+        f"CPU run, top-1 ids equal on {clear} of 13 (the rest tie within 2e-3)")
+    # where a dispatch of the shipped classifier goes, frames already on the card
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tiny_clf.classify_boxes_device(frames_dev, boxes, n_valid=13)
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    stages = classifier_stages(tiny_clf, frames_dev, boxes, iters=5)
+    say(f"phase 5 stages crop bucket 16, frames on the card: {wall:.3f} ms per "
+        f"dispatch (host clock); CUDA events, each span includes its launch "
+        f"gaps: " + ", ".join(f"{n} {t:.4f}" for n, t in stages.items())
+        + f"; spans sum {sum(stages.values()):.4f}")
+    return k1, k2
+
+
+def classifier_stages(clf, frames_dev, boxes, iters):
+    """Device ms per stage of one ``classify_boxes_device`` dispatch, CUDA
+    events between the stages run as ``_device_crop_program`` runs them."""
+    import torch
+    from telescope_cam_detection_tpu_torch.ops import cuda_attention
+    from telescope_cam_detection_tpu_torch.ops.crops import sample_crops
+    from telescope_cam_detection_tpu_torch.ops.nms import _stable_topk
+    from telescope_cam_detection_tpu_torch.ops.preprocess import normalize_rgb
+    model, size = clf.model, clf.input_size
+    names = ("crops_normalise", "patch_embed", "blocks_before_K2",
+             "attention_K2", "blocks_after_K2", "head_topk", "readback")
+    totals = dict.fromkeys(names, 0.0)
+    boxes_dev = torch.from_numpy(boxes).to(clf.device)
+
+    def mark(spans, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        spans.append((name, ev))
+
+    for it in range(iters + 1):
+        spans = []
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            mark(spans, None)
+            crops = sample_crops(frames_dev, boxes_dev, (size, size))
+            x = normalize_rgb(crops.flip(-1) * (1.0 / 255.0))
+            mark(spans, "crops_normalise")
+            x = model.embed(x)
+            mark(spans, "patch_embed")
+            for block in model.blocks():
+                qkv = block.qkv(x, model.rope_cos, model.rope_sin)
+                mark(spans, "blocks_before_K2")
+                attn = cuda_attention.attention(*qkv)
+                mark(spans, "attention_K2")
+                x = block.finish(x, attn)
+                mark(spans, "blocks_after_K2")
+            probs = torch.softmax(model.classify_tokens(x).float(), dim=-1)
+            top_p, top_i = _stable_topk(probs, min(10, clf.num_classes))
+            mark(spans, "head_topk")
+            torch.cat([top_p, top_i.to(top_p.dtype)], dim=-1).cpu()
+            mark(spans, "readback")
+        torch.cuda.synchronize()
+        if it == 0:          # warm-up
+            continue
+        for (_, a), (name, b) in zip(spans, spans[1:]):
+            totals[name] += a.elapsed_time(b)
+    return {n: t / iters for n, t in totals.items()}
+
+
+def phase_full_width(frames_1440, card):
+    """The classifier at its full published width, random weights. Returns
+    K2's launches on it."""
+    import torch
+    from telescope_cam_detection_tpu_torch.models import eva02
+    from telescope_cam_detection_tpu_torch.ops import cuda_attention
+    from telescope_cam_detection_tpu_torch.pipeline import species
+    from telescope_cam_detection_tpu_torch.ops.attention import (
+        attention_reference)
+    from telescope_cam_detection_tpu_torch.ops.crops import sample_crops
+    from telescope_cam_detection_tpu_torch.ops.preprocess import normalize_rgb
+    t0 = time.perf_counter()
+    clf = species.SpeciesClassifier(seed=0, device="cuda")   # the defaults
+    model = clf.model
+    n_params = sum(p.numel() for p in model.parameters())
+    check((clf.model_name, clf.input_size, clf.num_classes, model.depth,
+           model.dim, model.heads) == ("eva02-large", 336, 10000, 24, 1024, 16),
+          "SpeciesClassifier's defaults are not eva02-large@336")
+    say(f"phase 6 full width: eva02-large, 336x336, 10000 classes, depth 24, "
+        f"dim 1024, 16 heads, fp32, RANDOM WEIGHTS from seed 0, "
+        f"{n_params / 1e6:.1f} M parameters ({n_params * 4 / 1e9:.3f} GB) "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    frames_dev = torch.from_numpy(frames_1440[0]).to(clf.device)
+    launches = 0
+    for bucket, n_valid in ((4, 3), (16, 13)):
+        boxes = fixed_boxes(n_valid, bucket, 4, CAPTURE_HW, seed=bucket)
+        clf.classify_boxes_device(frames_dev, boxes, n_valid=n_valid)   # warm
+        torch.cuda.synchronize()
+        reps = 3
+        cuda_attention.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            preds = clf.classify_boxes_device(frames_dev, boxes, n_valid=n_valid)
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        check(cuda_attention.LAUNCHES == model.depth * reps,
+              f"{cuda_attention.LAUNCHES} K2 launches for {reps} dispatches "
+              f"of {model.depth} blocks")
+        launches += cuda_attention.LAUNCHES
+        check(len(preds) == n_valid, f"{len(preds)} results for {n_valid} boxes")
+
+        # logits with the kernel against logits with its plain version
+        with torch.inference_mode():
+            crops = sample_crops(frames_dev, torch.from_numpy(boxes).to(clf.device),
+                                 (clf.input_size,) * 2)
+            x = normalize_rgb(crops.flip(-1) * (1.0 / 255.0))
+            got = model(x)
+            eva02.attention = attention_reference
+            try:
+                want = model(x)
+            finally:
+                eva02.attention = cuda_attention.attention
+        check(got.shape == (bucket, 10000) and bool(torch.isfinite(got).all()),
+              f"logits {tuple(got.shape)} or non-finite")
+        err = float((got - want).abs().max())
+        check(err <= 1e-3, f"logits with K2 differ from plain by {err:.2e} > 1e-3")
+        check(torch.equal(got.topk(5).indices, want.topk(5).indices),
+              "top-5 with K2 differ from the plain version's")
+        stages = classifier_stages(clf, frames_dev, boxes, iters=3)
+        busy, top = profile_busy(
+            lambda: clf.classify_boxes_device(frames_dev, boxes, n_valid=n_valid), 2)
+        say(f"phase 6 crop bucket {bucket} ({n_valid} real boxes) on "
+            f"{CAPTURE_HW[0]}x{CAPTURE_HW[1]} frames: {wall:.3f} ms per "
+            f"dispatch (host clock, readback included), {model.depth} K2 "
+            f"launches per dispatch; logits with K2 within {err:.2e} of "
+            f"logits with attention_reference, same top-5 ({card}, random "
+            f"weights)")
+        say(f"phase 6 stages crop bucket {bucket} (ms per dispatch, CUDA "
+            f"events, each span includes its launch gaps): "
+            + ", ".join(f"{n} {t:.4f}" for n, t in stages.items())
+            + f"; spans sum {sum(stages.values()):.4f}")
+        say(f"phase 6 profile crop bucket {bucket}: device busy {busy:.4f} ms "
+            f"per dispatch, idle share {max(1.0 - busy / wall, 0.0):.3f} of "
+            f"the unprofiled host wall; top: " + top)
+    return launches
 
 
 def main() -> int:
@@ -387,8 +863,10 @@ def main() -> int:
         raise SmokeFailure("CUDA is not available: this smoke run needs the card")
     try:
         from telescope_cam_detection_tpu_torch.models.convert import (
-            load_npz, yolox_state_dict_from_flax)
-        from telescope_cam_detection_tpu_torch.ops import cuda_nms, nms
+            eva02_state_dict_from_flax, load_npz, yolox_state_dict_from_flax)
+        from telescope_cam_detection_tpu_torch.ops import (
+            cuda_attention, cuda_nms, nms)
+        from telescope_cam_detection_tpu_torch.pipeline import species
         from telescope_cam_detection_tpu_torch.runtime import program
         from telescope_cam_detection_tpu_torch.utils.frames import (
             SyntheticFrameSource)
@@ -400,7 +878,9 @@ def main() -> int:
     smi = smi.splitlines()[0]
     card = torch.cuda.get_device_name(0)
     say(f"phase 1 card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    phase_build(cuda_nms)
+    # K2 has one instance per head dim and type; print the ones EVA02 runs
+    phase_build([("K1 nms_suppress", cuda_nms, None),
+                 ("K2 attention", cuda_attention, "Li64E")])
 
     state = yolox_state_dict_from_flax(load_npz(WEIGHTS))
     src_640 = SyntheticFrameSource(width=INPUT_HW[1], height=INPUT_HW[0], seed=1)
@@ -412,14 +892,40 @@ def main() -> int:
     device = torch.device("cuda")
     model = program.DetectorProgram(program.ProgramSpec(), state_dict=state,
                                     device=device).model
-    kernel = phase_kernel(cuda_nms, nms, model, frames_640[0], device)
+    k1 = phase_kernel(cuda_nms, nms, model, frames_640[0], device)
     del model
-    kernel["launches"], prog_dev, prog_auto = phase_main_path(
+    eva_state = eva02_state_dict_from_flax(load_npz(EVA_WEIGHTS))
+    eva_cfg = json.loads(EVA_CONFIG.read_text())
+    tiny_clf = species.SpeciesClassifier(
+        eva_cfg["variant"], eva_cfg["num_classes"], eva_cfg["input_size"],
+        taxonomy_file=str(TAXONOMY), state_dict=eva_state, device="cuda")
+    k2 = phase_attention(cuda_attention, tiny_clf, device)
+
+    k1_detector, prog_dev, prog_auto = phase_main_path(
         cuda_nms, program, state, frames_1440, frames_640, card)
     phase_breakdown("device", prog_dev, frames_1440[0], CAPTURE_HW)
     phase_breakdown("auto", prog_auto, frames_640[0], INPUT_HW)
+    del prog_auto
+
+    k1_two_stage, k2_two_stage = phase_two_stage(
+        tiny_clf, eva_state, eva_cfg, prog_dev, frames_1440, card)
+    k2_full = phase_full_width(frames_1440, card)
+    # launches on the main paths only: each count was set to 0 just before
+    # its path and read just after; the comparisons above are not in it
+    k1["launches"] = k1_detector + k1_two_stage
+    k1["launches_by_path"] = {"detector": k1_detector, "two_stage": k1_two_stage}
+    k1["launches_per_dispatch"] = 1          # checked per request in phase 3
+    k2["launches"] = k2_two_stage + k2_full
+    k2["launches_by_path"] = {"two_stage": k2_two_stage, "full_width": k2_full}
+    # one per transformer block, checked per dispatch in phases 5 and 6
+    k2["launches_per_dispatch"] = {"eva02-large": 24,
+                                   eva_cfg["variant"]: tiny_clf.model.depth}
+    for kernel in (k1, k2):
+        kernel["kernel_ms"] = kernel["ms"]
+    check(k1["launches"] > 0 and k2["launches"] > 0,
+          "a kernel of the main path was never launched")
     say(smi)
-    say(json.dumps({"kernels": [kernel]}))
+    say(json.dumps({"kernels": [k1, k2]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

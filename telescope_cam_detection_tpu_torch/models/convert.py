@@ -1,8 +1,10 @@
-"""Flax weights -> PyTorch state dict for the port's YOLOX.
+"""Flax weights -> PyTorch state dicts for the port's YOLOX and EVA02.
 
 Counterpart of ``telescope_cam_detection_tpu/models/convert.py``: the same
 Flax-path -> Megvii-name map (``flax_path_to_torch_name``), the same
-HWIO -> OIHW kernel transpose, read with numpy only. The committed
+HWIO -> OIHW kernel transpose, read with numpy only. The port's EVA02 keeps
+the Flax tree's names, so its map (``eva02_state_dict_from_flax``) only
+renames leaves and transposes kernels. The committed
 ``weights/*.npz`` archives store fp16 leaves under '/'-joined Flax paths;
 they are cast to fp32, the port's serving precision (the role
 ``cast_tree_like`` plays in the JAX package).
@@ -130,6 +132,31 @@ def yolox_state_dict_from_flax(flat: Mapping[Any, Any]
         if np.issubdtype(value.dtype, np.floating):
             value = value.astype(np.float32)
         out[name] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def eva02_state_dict_from_flax(flat: Mapping[Any, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """Flax EVA02 variables -> fp32 state dict of ``models/eva02.EVA02``.
+
+    ``flat`` is the dict of ``weights/eva02_species.npz`` ('/'-joined paths
+    such as ``params/block0/q_proj/kernel``) or a Flax variable tree
+    ({"params": ...}), nested or flattened. Dense kernels (in, out) become
+    ``nn.Linear`` weights (out, in); the patch embedding goes HWIO -> OIHW;
+    LayerNorm ``scale`` becomes ``weight``."""
+    out: Dict[str, torch.Tensor] = {}
+    for (collection, *path), leaf in _flatten(flat).items():
+        if collection != "params":
+            raise KeyError(f"unknown EVA02 collection {collection}")
+        value = np.asarray(leaf)
+        leaf_name = path[-1]
+        if leaf_name == "kernel":
+            value = (np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4
+                     else value.T)
+        name = ".".join(path[:-1] + [
+            {"kernel": "weight", "scale": "weight"}.get(leaf_name, leaf_name)])
+        out[name] = torch.from_numpy(
+            np.ascontiguousarray(value.astype(np.float32)))
     return out
 
 

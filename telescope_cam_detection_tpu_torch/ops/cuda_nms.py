@@ -2,10 +2,9 @@
 
 Counterpart of ``telescope_cam_detection_tpu/ops/pallas_nms.py``. The
 kernel source is ``csrc/nms_suppress.cu`` (its header note gives the design
-and the bound). It is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, under ``_build/`` beside this
-package (listed in ``.gitignore``), and loaded with ``ctypes``. Importing
-this module needs no ``nvcc`` and no card.
+and the bound). ``ops/cuda_build.py`` compiles it with ``nvcc`` for
+``sm_90a`` at first use and loads it with ``ctypes``. Importing this module
+needs no ``nvcc`` and no card.
 
 ``suppress`` takes the kernel for CUDA tensors and the plain PyTorch version
 (``ops/nms.py _greedy_suppress``) for CPU tensors; there is no fallback from
@@ -14,79 +13,28 @@ one to the other. ``LAUNCHES`` counts the kernel's launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
-from typing import Optional
 
 import torch
 
+from telescope_cam_detection_tpu_torch.ops.cuda_build import CudaLibrary
 from telescope_cam_detection_tpu_torch.ops.nms import _greedy_suppress, iou_matrix
 
-PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE_DIR / "csrc" / "nms_suppress.cu"
-BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 _SMEM_LIMIT = 48 * 1024        # default dynamic shared memory of one block
 
 # Launches of the kernel (one per ``suppress`` call on CUDA tensors).
 LAUNCHES = 0
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-BUILD_LOG = ""                 # nvcc's output (ptxas registers/smem) of the build
+
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.nms_suppress_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the NMS kernel is built from "
-                           f"{SOURCE} on a host with the CUDA toolkit")
-    return path
-
-
-def build() -> Path:
-    """Compile ``csrc/nms_suppress.cu`` into ``_build/`` unless a library
-    built from the same source and flags is there; return its path."""
-    global BUILD_LOG
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:12]
-    target = BUILD_DIR / f"libnms_suppress-{digest}.so"
-    if target.exists():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return target
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.nms_suppress_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+# -fmad=false: keep masks are bit-equal to the plain version (see the source)
+LIBRARY = CudaLibrary("nms_suppress.cu", ("-fmad=false",), _declare)
 
 
 def suppress_reference(boxes: torch.Tensor, valid: torch.Tensor,
@@ -126,7 +74,7 @@ def suppress(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"K={k} exceeds the scan kernel's shared memory")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
-    fn = _library().nms_suppress_launch
+    fn = LIBRARY.load().nms_suppress_launch
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = fn(boxes.data_ptr(), valid.data_ptr(), b, k,

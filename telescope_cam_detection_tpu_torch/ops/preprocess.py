@@ -1,9 +1,11 @@
-"""On-device preprocess: uint8 BGR frames -> YOLOX input, and back.
+"""On-device preprocess: uint8 BGR frames -> detector/classifier input.
 
-Counterpart of ``telescope_cam_detection_tpu/ops/preprocess.py`` for the
-YOLOX convention: plain bilinear stretch (no letterbox), stays BGR, raw
-0..255 floats, no normalisation. The RT-DETR and classifier conventions
-come with their slices.
+Counterpart of ``telescope_cam_detection_tpu/ops/preprocess.py``. Two of its
+three pixel conventions are here:
+  * YOLOX: plain bilinear stretch (no letterbox), stays BGR, raw 0..255
+    floats, no normalisation.
+  * EVA02 classifier: resize, BGR->RGB, scale to 0..1, CLIP mean/std.
+The RT-DETR convention comes with its slice.
 """
 from __future__ import annotations
 
@@ -14,10 +16,35 @@ import torch
 from telescope_cam_detection_tpu_torch.ops.resize import resize_bilinear_nhwc
 
 
+# OpenAI-CLIP normalization used by EVA02 (timm cfg for eva02_large_clip_336)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
 def preprocess_yolox(frames_bgr_u8: torch.Tensor,
                      out_hw: Tuple[int, int]) -> torch.Tensor:
     """(N,H,W,3) uint8 BGR -> (N,h,w,3) fp32 BGR in 0..255."""
     return resize_bilinear_nhwc(frames_bgr_u8, out_hw)
+
+
+def preprocess_classifier(
+    crops_bgr_u8: torch.Tensor,
+    out_hw: Tuple[int, int],
+    mean: Tuple[float, float, float] = CLIP_MEAN,
+    std: Tuple[float, float, float] = CLIP_STD,
+) -> torch.Tensor:
+    """(N,H,W,3) uint8 BGR crops -> (N,h,w,3) normalized RGB fp32."""
+    x = resize_bilinear_nhwc(crops_bgr_u8, out_hw)
+    return normalize_rgb(x.flip(-1) * (1.0 / 255.0), mean, std)
+
+
+def normalize_rgb(x: torch.Tensor,
+                  mean: Tuple[float, float, float] = CLIP_MEAN,
+                  std: Tuple[float, float, float] = CLIP_STD) -> torch.Tensor:
+    """(x - mean) * (1 / std) over the last (channel) axis of 0..1 RGB."""
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    inv_std = 1.0 / torch.tensor(std, dtype=torch.float32, device=x.device)
+    return (x - mean_t) * inv_std
 
 
 def scale_boxes_back(boxes: torch.Tensor, model_hw: Tuple[int, int],

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from telescope_cam_detection_tpu_torch.ops import cuda_nms
+from telescope_cam_detection_tpu_torch.ops import cuda_attention, cuda_nms
+from telescope_cam_detection_tpu_torch.ops.attention import attention_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -52,3 +53,86 @@ def test_suppress_kernel_refuses_bad_inputs(device):
                           .transpose(0, 1), valid.to(device))
     with pytest.raises(ValueError):
         cuda_nms.suppress(boxes.to(device), valid)
+
+
+def _qkv(shape, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+            .to(device).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((16, 577, 16, 64), torch.float32, 2e-5),   # eva02-large@336, bucket 16
+    ((16, 65, 3, 64), torch.float32, 2e-5),     # shipped eva02-tiny@112
+    ((1, 128, 2, 64), torch.float32, 2e-5),
+    ((1, 130, 1, 48), torch.float32, 2e-5),     # ragged T, D = 48
+    ((2, 33, 2, 128), torch.float32, 2e-5),
+    ((1, 1, 1, 16), torch.float32, 2e-5),
+    ((3, 40, 2, 32), torch.float32, 2e-5),
+    ((2, 577, 4, 64), torch.bfloat16, 2e-2),
+    ((2, 33, 2, 128), torch.bfloat16, 2e-2),
+])
+def test_attention_kernel_matches_plain(device, shape, dtype, tol):
+    """fp32 within 2e-5 (another order of summation), bf16 within 2e-2 (the
+    output's rounding), the tolerances of tests/test_pallas_attention.py."""
+    q, k, v = _qkv(shape, dtype, device, seed=shape[1])
+    before = cuda_attention.LAUNCHES
+    got = cuda_attention.attention(q, k, v)
+    assert cuda_attention.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+    torch.testing.assert_close(got, attention_reference(q, k, v),
+                               rtol=tol, atol=tol)
+    want_cpu = cuda_attention.attention(q.cpu(), k.cpu(), v.cpu())   # plain
+    torch.testing.assert_close(got.cpu(), want_cpu, rtol=tol, atol=tol)
+
+
+def test_attention_kernel_keeps_large_scores_finite(device):
+    """Scores past 88 overflow exp() unless the running maximum is taken
+    off. q and k are rounded to quarters so q.k is exact in any order."""
+    q, k, v = _qkv((2, 577, 4, 64), torch.float32, device, seed=3)
+    q, k = torch.round(q * 4) / 4 * 30.0, torch.round(k * 4) / 4
+    got = cuda_attention.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, attention_reference(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_attention_kernel_refuses_bad_inputs(device):
+    q, k, v = _qkv((2, 10, 2, 32), torch.float32, device)
+    before = cuda_attention.LAUNCHES
+    for d in (8, 24, 144):                       # unsupported head dims
+        x = torch.zeros(1, 4, 1, d, device=device)
+        with pytest.raises(ValueError, match="head dim"):
+            cuda_attention.attention(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_attention.attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                 k, v)
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        cuda_attention.attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        cuda_attention.attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(q.numel() + 1, device=device)
+        off = flat[1:].view(q.shape)
+        cuda_attention.attention(off, off, off)
+    assert cuda_attention.LAUNCHES == before      # nothing fell through
+
+
+def test_eva02_on_the_card_runs_the_kernel_in_every_block(device):
+    from telescope_cam_detection_tpu_torch.models.eva02 import EVA02
+    kw = dict(num_classes=17, depth=3, dim=64, heads=2, mlp_hidden=96,
+              patch=14, image_size=56)
+    torch.manual_seed(0)
+    model = EVA02(**kw).eval()
+    x = torch.randn(2, 56, 56, 3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        want = model(x)                          # CPU: the plain version
+        before = cuda_attention.LAUNCHES
+        got = model.to(device)(x.to(device))
+    assert cuda_attention.LAUNCHES == before + 3
+    # fp32 end to end; sums in another order on the card
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

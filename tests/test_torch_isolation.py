@@ -57,7 +57,7 @@ def test_port_import_pulls_in_no_jax():
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15    # every module was imported
+    assert int(out.stdout.split()[-1]) >= 28    # every module was imported
 
 
 def test_entry_points_refuse_without_cuda():
@@ -75,6 +75,33 @@ def test_entry_points_refuse_without_cuda():
     prog = DetectorProgram(spec, device="cpu")
     rows = prog.detect_batch_rows(np.zeros((1, 64, 64, 3), np.uint8))
     assert rows.shape == (1, 300, 7)
+
+
+def test_stage2_entry_points_refuse_without_cuda():
+    """The classifier defaults to the card too; the pipeline uploads its
+    frame to the classifier's device."""
+    from telescope_cam_detection_tpu_torch.pipeline.species import (
+        SpeciesClassifier)
+    from telescope_cam_detection_tpu_torch.pipeline.two_stage import (
+        TwoStageDetectionPipeline)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpeciesClassifier("eva02-tiny", 8, 56)
+    clf = SpeciesClassifier("eva02-tiny", 8, 56, device="cpu")
+    assert clf.device.type == "cpu"
+    clf.hierarchy_thresholds = dict.fromkeys(clf.hierarchy_thresholds, 0.0)
+    pipe = TwoStageDetectionPipeline(clf, device_crops=True, min_crop_size=16,
+                                     confidence_threshold=0.0)
+    out = pipe.process_detections(
+        np.zeros((64, 64, 3), np.uint8),
+        [{"class_id": 14, "class_name": "bird", "confidence": 0.9,
+          "bbox": {"x1": 4, "y1": 4, "x2": 60, "y2": 60}}])
+    assert "species" in out[0]
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        from telescope_cam_detection_tpu_torch.ops.cuda_attention import attention
+        q = torch.zeros(1, 4, 1, 16)
+        attention(q, q.to("meta"), q)
 
 
 def _run_smoke(cwd):

@@ -45,3 +45,52 @@ def flax_yolox_variables(variant: str, size: int, seed: int = 3):
 
     variables = jax.tree_util.tree_map_with_path(fill, shapes)
     return model, sharpen_random_variables(variables, seed)
+
+
+def flax_tree_from_flat(flat):
+    """A flat dict with '/'-joined Flax paths (a ``weights/*.npz`` archive)
+    -> the nested fp32 variable tree the Flax model applies."""
+    tree = {}
+    for key, value in flat.items():
+        *mods, leaf = key.split("/")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = jnp.asarray(np.asarray(value, np.float32))
+    return tree
+
+
+def flat_from_flax_tree(tree, prefix=""):
+    """The inverse: nested variable tree -> flat dict of numpy arrays."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, dict):
+            flat.update(flat_from_flax_tree(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def flax_eva02_variables(model, image_size: int, seed: int = 5):
+    """A Flax EVA02 variable tree filled from a numpy seed (structure from
+    ``jax.eval_shape`` of ``model.init``): kernels ~ N(0, 1/fan_in), norm
+    scales near 1, biases and tokens small, so logits spread enough for a
+    top-5 to be well defined."""
+    shapes = jax.eval_shape(
+        lambda x: model.init(jax.random.PRNGKey(0), x, train=False),
+        jnp.zeros((1, image_size, image_size, 3)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            value = rng.normal(0.0, 1.0 / np.sqrt(fan_in), leaf.shape)
+        elif name == "scale":
+            value = rng.uniform(0.8, 1.2, leaf.shape)
+        else:                                   # bias, cls_token, pos_embed
+            value = rng.normal(0.0, 0.05, leaf.shape)
+        return jnp.asarray(value.astype(np.float32))
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
