@@ -9,8 +9,9 @@ Phases, each printed as it ends; any failure exits non-zero at once:
    from the sources in this checkout (``nvcc``, sm_90a, one process per
    source, started together).
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with CUDA-event timings: K1 (NMS suppression), then K2
-   (fused attention).
+   path's shapes, with CUDA-event timings: K1 (NMS suppression), K2 (fused
+   attention), then K3 (multi-scale deformable sampling, also timed beside
+   the ``F.grid_sample`` composition that computes the same function).
 3. The detector path: ``DetectorProgram`` serving weights/yolox_s_scene640.npz
    (YOLOX-S, full width and depth, 640x640 input, fp32, TF32 off) answers
    requests through ``detect_batch_rows`` (the rows behind ``detect_batch``);
@@ -28,6 +29,13 @@ Phases, each printed as it ends; any failure exits non-zero at once:
    ``SpeciesClassifier.classify_boxes_device``; launch counts, logits with
    the kernel against logits with its plain version, a per-stage split and
    the device's idle share.
+7. The RT-DETR path: ``DetectorProgram(detector_type="rtdetr")`` serving
+   weights/rtdetrv2_r18vd_scene640.npz (RT-DETRv2-r18vd, full width and
+   depth, 640x640, fp32, TF32 off) answers requests; K3 launches are counted
+   per dispatch (one per decoder layer) and its rows are held against the
+   same program run on the CPU.
+8. Where an RT-DETR request's time goes: CUDA events between its stages
+   (K3 apart from the rest of the decoder) and the device's idle share.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the port
@@ -46,6 +54,9 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 WEIGHTS = REPO / "weights" / "yolox_s_scene640.npz"
 EVA_WEIGHTS = REPO / "weights" / "eva02_species.npz"
+RT_WEIGHTS = REPO / "weights" / "rtdetrv2_r18vd_scene640.npz"
+RT_CONFIG = REPO / "weights" / "rtdetrv2_r18vd_scene640.json"
+RT_CONF = 0.25      # rows compared across devices: the served threshold
 EVA_CONFIG = REPO / "weights" / "eva02_species.json"
 TAXONOMY = REPO / "weights" / "species_taxonomy.json"
 INPUT_HW = (640, 640)
@@ -99,8 +110,10 @@ def rows_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def match_rows(rows_a: np.ndarray, rows_b: np.ndarray, conf: float,
                margin: float = 0.01) -> int:
-    """Rows above conf + margin in either set have a partner in the other at
-    IoU >= 0.99 with the same class. Returns the number matched."""
+    """Rows above conf + margin in either set have a partner of the same
+    class in the other at IoU >= 0.99. Partners are sought within the class:
+    an RT-DETR box stands in one row per class it scores. Returns the number
+    matched."""
     matched = 0
     for ra, rb in zip(rows_a, rows_b):
         ra, rb = ra[ra[:, 5] >= 0], rb[rb[:, 5] >= 0]
@@ -108,13 +121,13 @@ def match_rows(rows_a: np.ndarray, rows_b: np.ndarray, conf: float,
             for row in src:
                 if row[4] * row[5] < conf + margin:
                     continue
-                check(len(dst) > 0, "confident row without a partner")
-                iou = rows_iou(row, dst)
+                same = dst[dst[:, 6] == row[6]]
+                check(len(same) > 0, f"CUDA vs CPU rows: no partner of class "
+                      f"{int(row[6])} ({row})")
+                iou = rows_iou(row, same)
                 j = int(np.argmax(iou))
                 check(iou[j] >= 0.99,
                       f"CUDA vs CPU rows: IoU {iou[j]:.4f} < 0.99 ({row})")
-                check(int(row[6]) == int(dst[j, 6]),
-                      f"CUDA vs CPU rows: class {int(row[6])} vs {int(dst[j, 6])}")
                 matched += 1
     return matched
 
@@ -404,28 +417,53 @@ def phase_breakdown(name, prog, frames, capture_hw, iters=10):
         f"unprofiled host wall; top: " + top)
 
 
-def profile_busy(fn, reps: int):
-    """Device busy ms per call of ``fn`` from ``torch.profiler``, and the
-    eight device rows (kernels, copies) that take most of it."""
+def _profile(fn, reps: int):
+    """(device rows of ``torch.profiler``'s key averages over ``reps`` calls
+    of ``fn``, the host's ms per call without a sync). Device rows only: a
+    CPU op's row repeats the device time of the kernels it launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
         torch.cuda.synchronize()
-    # device-side rows only: a CPU op's row repeats the device time of the
-    # kernels it launched
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
+    return ([e for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")], host_ms)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
-    busy = sum(dev_us(e) for e in events) / reps / 1e3
-    top = sorted(events, key=lambda e: -dev_us(e))[:8]
-    return busy, "; ".join(f"{e.key[:70]} {dev_us(e) / reps / 1e3:.4f}"
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profile_busy(fn, reps: int):
+    """Device busy ms per call of ``fn`` from ``torch.profiler``, and the
+    eight device rows (kernels, copies) that take most of it."""
+    events, _ = _profile(fn, reps)
+    busy = sum(_device_us(e) for e in events) / reps / 1e3
+    top = sorted(events, key=lambda e: -_device_us(e))[:8]
+    return busy, "; ".join(f"{e.key[:70]} {_device_us(e) / reps / 1e3:.4f}"
                            for e in top)
+
+
+def device_ms(fn, reps: int, kernel: str = "", warmup: int = 5):
+    """(device ms per call of ``fn`` in the kernels whose name holds
+    ``kernel``, or in every device row; the host's ms per call). Unlike CUDA
+    events around a loop, the device time leaves out the gaps in which the
+    card waits for the host to launch the next call."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events, host_ms = _profile(fn, reps)
+    rows = [e for e in events if kernel in e.key]
+    if kernel:
+        launched = sum(e.count for e in rows)
+        check(launched == reps, f"the profiler saw {launched} {kernel} "
+              f"launches in {reps} calls")
+    return sum(_device_us(e) for e in rows) / reps / 1e3, host_ms
 
 
 def attention_inputs(shape, dtype, device, seed=0, q_scale=1.0):
@@ -857,15 +895,366 @@ def phase_full_width(frames_1440, card):
     return launches
 
 
+def deform_inputs(rng, b, q, heads, hd, level_hw, lo=0.0, hi=1.0, p=4):
+    """Seeded values (B, S, heads, hd), locations uniform in [lo, hi) and
+    softmaxed weights, as CPU tensors."""
+    import torch
+    s = sum(h * w for h, w in level_hw)
+    values = torch.from_numpy(rng.normal(size=(b, s, heads, hd)).astype(np.float32))
+    locs = torch.from_numpy(rng.uniform(
+        lo, hi, (b, q, heads, len(level_hw), p, 2)).astype(np.float32))
+    w = torch.softmax(torch.from_numpy(rng.normal(
+        size=(b, q, heads, len(level_hw) * p)).astype(np.float32)), -1)
+    return values, locs, w.reshape(b, q, heads, len(level_hw), p).contiguous()
+
+
+def half_pixel_locs(rng, b, q, heads, level_hw, p=4):
+    """Locations on multiples of half a pixel of each level (pixel centres
+    and edges), a little past the border too: loc * w - 0.5 must round as
+    the plain version's does, or a corner moves by a pixel."""
+    import torch
+    locs = np.empty((b, q, heads, len(level_hw), p, 2), np.float32)
+    for lvl, (h, w) in enumerate(level_hw):
+        for axis, n in ((0, w), (1, h)):
+            k = rng.integers(-2, 2 * n + 3, (b, q, heads, p))
+            locs[:, :, :, lvl, :, axis] = (k / (2.0 * n)).astype(np.float32)
+    return torch.from_numpy(locs)
+
+
+def deform_bound(values, level_hw, locs):
+    """(bound_ms, bound_by, operations, bytes, value rows read): 2 B Q H L P
+    4 D operations (a multiply and an add per corner and channel) at the
+    fp32 peak; at the memory rate, each distinct (image, head, pixel) row of
+    hd values that this run's locations read (the four corners, clamped as
+    the kernel clamps them), read once, the locations and weights read once
+    and the output written once."""
+    import torch
+    from telescope_cam_detection_tpu_torch.ops.deform import (
+        bilinear_corner_fractions)
+    b, s, heads, hd = values.shape
+    _, q, _, n_levels, points, _ = locs.shape
+    ops = 2.0 * b * q * heads * n_levels * points * 4 * hd
+    image_head = (torch.arange(b, device=locs.device)[:, None, None, None]
+                  * heads + torch.arange(heads, device=locs.device)[:, None])
+    rows = 0
+    for lvl, (h, w) in enumerate(level_hw):
+        x0, y0, _, _ = bilinear_corner_fractions(locs[:, :, :, lvl], h, w)
+        keys = [image_head * (h * w) + (y0 + dy).long().clamp(0, h - 1) * w
+                + (x0 + dx).long().clamp(0, w - 1)
+                for dy in (0, 1) for dx in (0, 1)]
+        rows += int(torch.unique(torch.stack(keys)).numel())
+    nbytes = 4.0 * (rows * hd + locs.numel() + locs.numel() // 2
+                    + b * q * heads * hd)
+    ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops, nbytes, rows)
+
+
+def grid_sample_deform(values, level_hw, locs, weights):
+    """The yardstick: the same function as one composition of PyTorch calls,
+    ``F.grid_sample`` (bilinear, border padding, align_corners=False) per
+    level on (B * heads, hd, H, W) at 2 * loc - 1, then the weighted sum
+    over points and levels. Border padding clamps the coordinate, which
+    reads what clamping both corner indices reads. Timed only; the port
+    never calls it."""
+    import torch.nn.functional as F
+    from telescope_cam_detection_tpu_torch.ops.deform import split_levels
+    b, _, heads, hd = values.shape
+    _, q, _, _, points, _ = locs.shape
+    out = 0
+    for lvl, v in enumerate(split_levels(values, level_hw)):
+        h, w = level_hw[lvl]
+        v = v.permute(0, 3, 4, 1, 2).reshape(b * heads, hd, h, w)
+        grid = (2 * locs[:, :, :, lvl] - 1).permute(0, 2, 1, 3, 4) \
+            .reshape(b * heads, q, points, 2)
+        sampled = F.grid_sample(v, grid, mode="bilinear", padding_mode="border",
+                                align_corners=False)     # (B*heads, hd, Q, P)
+        wl = weights[:, :, :, lvl].permute(0, 2, 1, 3).reshape(
+            b * heads, 1, q, points)
+        out = out + (sampled * wl).sum(-1)
+    return out.reshape(b, heads, hd, q).permute(0, 3, 1, 2)
+
+
+def shipped_deform_inputs(rt_model, frames_640, device):
+    """K3's inputs in the shipped RT-DETR's first decoder layer on real
+    frames: what a forward hook sees its ``cross_attn.sampling`` called
+    with (the model's own value_proj, locations and weights)."""
+    import torch
+    from telescope_cam_detection_tpu_torch.ops.preprocess import preprocess_rtdetr
+    seen = []
+    hook = rt_model.decoder0.cross_attn.sampling.register_forward_pre_hook(
+        lambda module, args: seen.append(args))
+    try:
+        with torch.inference_mode():
+            rt_model(preprocess_rtdetr(torch.from_numpy(frames_640).to(device),
+                                       INPUT_HW))
+    finally:
+        hook.remove()
+    values, level_hw, locs, w = seen[0]
+    return level_hw, (values, locs, w)
+
+
+def phase_deform(cuda_deform, rt_model, frames_640, device):
+    """K3 against its plain version on the card, within rtol 1e-4, atol
+    1e-5 (tests/test_pallas_deform.py's tolerance), then its timings beside
+    the bound and the grid_sample yardstick."""
+    import torch
+    from telescope_cam_detection_tpu_torch.ops.deform import (
+        ms_deformable_attention_reference, split_levels)
+    rng = np.random.default_rng(3)
+    rt640 = [(INPUT_HW[0] // s, INPUT_HW[1] // s) for s in (8, 16, 32)]
+    shipped_hw, shipped = shipped_deform_inputs(rt_model, frames_640, device)
+    check(list(shipped_hw) == rt640, f"shipped levels {shipped_hw}")
+    cases = [
+        ("random small B=2 Q=30", [(12, 16), (6, 8), (3, 4)],
+         deform_inputs(rng, 2, 30, 8, 32, [(12, 16), (6, 8), (3, 4)])),
+        (f"decoder shapes B=4 Q=300 at {INPUT_HW[0]}x{INPUT_HW[1]}", rt640,
+         deform_inputs(rng, 4, 300, 8, 32, rt640)),
+        ("locations outside [0, 1]", rt640,
+         deform_inputs(rng, 2, 300, 8, 32, rt640, -0.5, 1.5)),
+        ("H != W levels, Q=30", [(24, 40), (12, 20), (6, 10)],
+         deform_inputs(rng, 2, 30, 8, 32, [(24, 40), (12, 20), (6, 10)])),
+    ]
+    v, _, w = deform_inputs(rng, 2, 300, 8, 32, rt640)
+    cases.append(("pixel centres and edges", rt640,
+                  (v, half_pixel_locs(rng, 2, 300, 8, rt640), w)))
+    cases.append((f"shipped r18vd value_proj, B={len(frames_640)}, Q=300",
+                  rt640, shipped))
+    max_err = 0.0
+    for name, level_hw, tensors in cases:
+        values, locs, w = (x.to(device) for x in tensors)
+        before = cuda_deform.LAUNCHES
+        got = cuda_deform.deform_sample(values, level_hw, locs, w)
+        torch.cuda.synchronize()
+        check(cuda_deform.LAUNCHES == before + 1, "K3 launch not counted")
+        want = ms_deformable_attention_reference(
+            split_levels(values, level_hw), locs, w)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"K3 output {tuple(got.shape)} or non-finite: {name}")
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        try:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        except AssertionError as e:
+            raise SmokeFailure(f"K3 differs from its plain version: {name}: {e}")
+        note = ""
+        if name.startswith("decoder shapes"):
+            want_cpu = cuda_deform.deform_sample(
+                values.cpu(), level_hw, locs.cpu(), w.cpu())
+            try:
+                torch.testing.assert_close(got.cpu(), want_cpu, rtol=1e-4,
+                                           atol=1e-5)
+            except AssertionError as e:
+                raise SmokeFailure(f"K3 differs from the CPU plain version: {e}")
+            note = ", also within it of the CPU plain version"
+        say(f"phase 2 K3 {name} values {tuple(values.shape)} locs "
+            f"{tuple(locs.shape)}: within rtol 1e-4 atol 1e-5 of plain, max "
+            f"abs err {err:.3e}{note}")
+
+    values, locs, w = shipped
+    kernel_ms, host_ms = device_ms(
+        lambda: cuda_deform.deform_sample(values, rt640, locs, w), reps=100,
+        kernel="deform_kernel")
+    events_ms = cuda_time_ms(
+        lambda: cuda_deform.deform_sample(values, rt640, locs, w), iters=100)
+    plain_ms, _ = device_ms(lambda: ms_deformable_attention_reference(
+        split_levels(values, rt640), locs, w), reps=5, warmup=2)
+    library_ms, _ = device_ms(
+        lambda: grid_sample_deform(values, rt640, locs, w), reps=20, warmup=3)
+    bound_ms, bound_by, ops, nbytes, rows = deform_bound(values, rt640, locs)
+    all_rows = values.shape[0] * values.shape[1] * values.shape[2]
+    want = ms_deformable_attention_reference(split_levels(values, rt640), locs, w)
+    lib_err = float((grid_sample_deform(values, rt640, locs, w) - want).abs().max())
+    try:
+        torch.testing.assert_close(grid_sample_deform(values, rt640, locs, w),
+                                   want, rtol=1e-4, atol=1e-5)
+        lib_note = "within rtol 1e-4 atol 1e-5 of the plain version"
+    except AssertionError:
+        lib_note = "NOT within rtol 1e-4 atol 1e-5 of the plain version"
+    say(f"phase 2 K3 grid_sample yardstick on the shipped inputs: {lib_note}, "
+        f"max abs err {lib_err:.3e}")
+    say(f"phase 2 K3 timing values {tuple(values.shape)} locs "
+        f"{tuple(locs.shape)} (device ms per call from torch.profiler): "
+        f"kernel_ms {kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms "
+        f"{library_ms:.5f} (F.grid_sample per level, permutes included) "
+        f"bound_ms {bound_ms:.5f} ({bound_by}: {ops:.3e} ops, {nbytes:.3e} "
+        f"bytes, {rows} distinct value rows of {all_rows}), "
+        f"{nbytes / kernel_ms / 1e9:.2f} TB/s of the bound's bytes; host "
+        f"{host_ms:.5f} ms per wrapper call, CUDA events around 100 calls "
+        f"{events_ms:.5f} ms per call")
+    return {"name": "deform", "route": "cuda",
+            "source": "telescope_cam_detection_tpu_torch/csrc/deform.cu",
+            "replaces": "telescope_cam_detection_tpu/ops/pallas_deform.py:41",
+            "launches": 0, "max_abs_err": max_err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_within_tolerance": lib_note.startswith("within"),
+            "host_ms_per_call": host_ms, "events_ms": events_ms,
+            "value_rows_read": rows,
+            "shape": {"values": list(values.shape), "locs": list(locs.shape)}}
+
+
+def phase_rtdetr(program, rt_state, rt_cfg, frames_1440, frames_640, card):
+    """Drive the RT-DETR path; return (K3 launches, programs)."""
+    import torch
+    from telescope_cam_detection_tpu_torch.ops import cuda_deform, cuda_nms
+    kw = dict(detector_type="rtdetr", variant=rt_cfg["variant"],
+              num_classes=rt_cfg["num_classes"], input_hw=INPUT_HW)
+    spec_dev = program.ProgramSpec(transfer="device", **kw)
+    spec_auto = program.ProgramSpec(transfer="auto", **kw)
+    progs = {"device": program.DetectorProgram(spec_dev, state_dict=rt_state,
+                                               device="cuda"),
+             "auto": program.DetectorProgram(spec_auto, state_dict=rt_state,
+                                             device="cuda")}
+    layers = progs["device"].model.decoder_layers
+    loose = program.FilterSettings(conf_threshold=0.0, wildlife_only=False)
+    progs["auto"].update_filters(loose)
+    progs["device"].warm(len(frames_1440[0]), CAPTURE_HW)
+    progs["auto"].warm(len(frames_640[0]), INPUT_HW)
+    torch.cuda.synchronize()
+
+    results = {"device": [], "auto": []}
+    dispatches = 0
+    cuda_deform.LAUNCHES = cuda_nms.LAUNCHES = 0
+    for name, sets in (("device", frames_1440), ("auto", frames_640)):
+        prog = progs[name]
+        built = prog.stats["compilations"]
+        for i in range(REQUESTS):
+            frames = sets[max(i - 1, 0)] if name == "device" else sets[i]
+            if name == "device" and i == 1:
+                prog.update_filters(loose)   # between requests, no rebuild
+            before = cuda_deform.LAUNCHES
+            t0 = time.perf_counter()
+            rows = prog.detect_batch_rows(frames)
+            seconds = time.perf_counter() - t0
+            dispatches += 1
+            check(cuda_deform.LAUNCHES == before + layers,
+                  f"K3 launches grew by {cuda_deform.LAUNCHES - before}, not "
+                  f"{layers} (one per decoder layer)")
+            results[name].append((frames, rows, seconds))
+        check(prog.stats["compilations"] == built,
+              "update_filters or a request rebuilt a program")
+    launches, k1 = cuda_deform.LAUNCHES, cuda_nms.LAUNCHES
+    check(launches == layers * dispatches,
+          f"{launches} K3 launches, {dispatches} dispatches x {layers} layers")
+    check(k1 == 0, f"{k1} K1 launches on the NMS-free RT-DETR path")
+    strict_rows, loose_rows = results["device"][0][1], results["device"][1][1]
+    check(int((loose_rows[..., 5] >= 0).sum()) > int((strict_rows[..., 5] >= 0).sum()),
+          "update_filters did not change the result")
+    for name, hw in (("device", CAPTURE_HW), ("auto", INPUT_HW)):
+        steady = results[name][1:]
+        n_frames = sum(len(f) for f, _, _ in steady)
+        fps = n_frames / sum(s for _, _, s in steady)
+        for frames, rows, _ in results[name]:
+            check_rows(rows, len(frames), hw)
+        last = results[name][-1][1]
+        confident = [int(n) for n in (last[..., 4] * last[..., 5] >= RT_CONF).sum(1)]
+        say(f"phase 7 RT-DETR transfer={name} B={len(results[name][0][0])} "
+            f"capture {hw[0]}x{hw[1]}: {REQUESTS} requests, {confident} rows "
+            f"per frame at score >= {RT_CONF}, {fps:.2f} frames/s host clock "
+            f"incl. transfer and readback ({card})")
+    say(f"phase 7 RT-DETR K3 launches in the path: {launches} for {dispatches} "
+        f"dispatches ({layers} per dispatch, one per decoder layer); K1 "
+        f"launches {k1} (NMS-free)")
+
+    # the same frames through the same program on the CPU: the request (under
+    # the loose filter) with the most confident rows
+    def most_confident(res):
+        return max(res, key=lambda r: int(
+            (r[1][..., 4] * r[1][..., 5] >= RT_CONF + 0.01).sum()))
+
+    for name, spec, (frames, rows, _) in (
+            ("device", spec_dev, most_confident(results["device"][1:])),
+            ("auto", spec_auto, most_confident(results["auto"]))):
+        cpu = program.DetectorProgram(spec, state_dict=rt_state, device="cpu")
+        cpu.update_filters(loose)
+        want = cpu.detect_batch_rows(frames)
+        matched = match_rows(rows, want, RT_CONF)
+        check(matched > 0, f"RT-DETR transfer={name}: no confident rows to compare")
+        say(f"phase 7 RT-DETR transfer={name}: CUDA rows match the CPU program, "
+            f"{matched} rows at score >= {RT_CONF + 0.01} at IoU >= 0.99 with "
+            f"equal classes")
+    return launches, layers, progs
+
+
+def phase_rtdetr_breakdown(name, prog, frames, capture_hw, iters=5):
+    """Device time of each stage of one RT-DETR request as the program runs
+    it (``dispatch_batch``, then ``materialize``): CUDA events recorded
+    around the two calls and by forward hooks at the model's module
+    boundaries, K3 being each decoder layer's ``cross_attn.sampling``. The
+    host clock around the same request gives the idle share."""
+    import torch
+    model = prog.model
+    names = ("h2d_preprocess", "backbone", "encoder", "query_selection",
+             "decoder_excl_K3", "deform_K3", "postprocess", "readback")
+    totals = dict.fromkeys(names, 0.0)
+    wall = 0.0
+    spans = []
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        spans.append((label, ev))
+
+    def before(label):
+        return lambda module, args: mark(label)
+
+    def after(label):
+        return lambda module, args, out: mark(label)
+
+    hooks = [model.backbone.register_forward_pre_hook(before("h2d_preprocess")),
+             model.backbone.register_forward_hook(after("backbone")),
+             model.encoder.register_forward_hook(after("encoder")),
+             # the first layer's query_pos_head runs before this hook
+             model.decoder0.register_forward_pre_hook(before("query_selection")),
+             model.class_head.register_forward_hook(after("decoder_excl_K3"))]
+    for layer, _ in model.decoders():
+        sampling = layer.cross_attn.sampling
+        hooks += [sampling.register_forward_pre_hook(before("decoder_excl_K3")),
+                  sampling.register_forward_hook(after("deform_K3"))]
+    try:
+        for it in range(iters + 2):
+            spans.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mark(None)
+            handle = prog.dispatch_batch(frames)
+            mark("postprocess")
+            prog.materialize(handle, len(frames))
+            mark("readback")
+            torch.cuda.synchronize()
+            if it < 2:          # warm-up
+                continue
+            wall += (time.perf_counter() - t0) * 1e3
+            for (_, a), (label, b) in zip(spans, spans[1:]):
+                totals[label] += a.elapsed_time(b)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    per = {n: t / iters for n, t in totals.items()}
+    wall /= iters
+    say(f"phase 8 RT-DETR stages transfer={name} B={len(frames)} capture "
+        f"{capture_hw[0]}x{capture_hw[1]} (ms per request, CUDA events, each "
+        f"span includes the launch gaps inside it): "
+        + ", ".join(f"{n} {t:.4f}" for n, t in per.items())
+        + f"; spans sum {sum(per.values()):.4f}, host wall {wall:.4f}")
+    busy, top = profile_busy(
+        lambda: prog.materialize(prog.dispatch_batch(frames), len(frames)), 5)
+    say(f"phase 8 RT-DETR profile transfer={name}: device busy {busy:.4f} ms "
+        f"per request, idle share {max(1.0 - busy / wall, 0.0):.3f} of the "
+        f"unprofiled host wall; top: " + top)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("CUDA is not available: this smoke run needs the card")
     try:
         from telescope_cam_detection_tpu_torch.models.convert import (
-            eva02_state_dict_from_flax, load_npz, yolox_state_dict_from_flax)
+            eva02_state_dict_from_flax, load_npz, rtdetr_state_dict_from_flax,
+            yolox_state_dict_from_flax)
         from telescope_cam_detection_tpu_torch.ops import (
-            cuda_attention, cuda_nms, nms)
+            cuda_attention, cuda_deform, cuda_nms, nms)
         from telescope_cam_detection_tpu_torch.pipeline import species
         from telescope_cam_detection_tpu_torch.runtime import program
         from telescope_cam_detection_tpu_torch.utils.frames import (
@@ -880,7 +1269,8 @@ def main() -> int:
     say(f"phase 1 card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     # K2 has one instance per head dim and type; print the ones EVA02 runs
     phase_build([("K1 nms_suppress", cuda_nms, None),
-                 ("K2 attention", cuda_attention, "Li64E")])
+                 ("K2 attention", cuda_attention, "Li64E"),
+                 ("K3 deform", cuda_deform, None)])
 
     state = yolox_state_dict_from_flax(load_npz(WEIGHTS))
     src_640 = SyntheticFrameSource(width=INPUT_HW[1], height=INPUT_HW[0], seed=1)
@@ -900,6 +1290,13 @@ def main() -> int:
         eva_cfg["variant"], eva_cfg["num_classes"], eva_cfg["input_size"],
         taxonomy_file=str(TAXONOMY), state_dict=eva_state, device="cuda")
     k2 = phase_attention(cuda_attention, tiny_clf, device)
+    rt_state = rtdetr_state_dict_from_flax(load_npz(RT_WEIGHTS))
+    rt_cfg = json.loads(RT_CONFIG.read_text())
+    rt_model = program.DetectorProgram(
+        program.ProgramSpec(detector_type="rtdetr", variant=rt_cfg["variant"]),
+        state_dict=rt_state, device=device).model
+    k3 = phase_deform(cuda_deform, rt_model, frames_640[0][:4], device)
+    del rt_model
 
     k1_detector, prog_dev, prog_auto = phase_main_path(
         cuda_nms, program, state, frames_1440, frames_640, card)
@@ -910,6 +1307,10 @@ def main() -> int:
     k1_two_stage, k2_two_stage = phase_two_stage(
         tiny_clf, eva_state, eva_cfg, prog_dev, frames_1440, card)
     k2_full = phase_full_width(frames_1440, card)
+    k3_launches, rt_layers, rt_progs = phase_rtdetr(
+        program, rt_state, rt_cfg, frames_1440, frames_640, card)
+    phase_rtdetr_breakdown("device", rt_progs["device"], frames_1440[0], CAPTURE_HW)
+    phase_rtdetr_breakdown("auto", rt_progs["auto"], frames_640[0], INPUT_HW)
     # launches on the main paths only: each count was set to 0 just before
     # its path and read just after; the comparisons above are not in it
     k1["launches"] = k1_detector + k1_two_stage
@@ -920,12 +1321,15 @@ def main() -> int:
     # one per transformer block, checked per dispatch in phases 5 and 6
     k2["launches_per_dispatch"] = {"eva02-large": 24,
                                    eva_cfg["variant"]: tiny_clf.model.depth}
-    for kernel in (k1, k2):
+    k3["launches"] = k3_launches
+    k3["launches_by_path"] = {"rtdetr": k3_launches}
+    k3["launches_per_dispatch"] = rt_layers   # checked per request in phase 7
+    for kernel in (k1, k2, k3):
         kernel["kernel_ms"] = kernel["ms"]
-    check(k1["launches"] > 0 and k2["launches"] > 0,
+    check(k1["launches"] > 0 and k2["launches"] > 0 and k3["launches"] > 0,
           "a kernel of the main path was never launched")
     say(smi)
-    say(json.dumps({"kernels": [k1, k2]}))
+    say(json.dumps({"kernels": [k1, k2, k3]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

@@ -17,6 +17,11 @@ Stage 2 is species classification (``pipeline/two_stage.py`` over
 attention runs in the hand-written CUDA kernel ``csrc/attention.cu``, and
 annotated with taxonomy labels and time-of-day re-ranking.
 
+RT-DETR (``runtime/program.py`` with ``detector_type="rtdetr"``, over
+``models/rtdetr.py``) is the NMS-free detector: ResNet-vd and the hybrid
+encoder (cuDNN convolutions), then a deformable-attention decoder whose
+multi-scale sampling runs in the hand-written CUDA kernel ``csrc/deform.cu``.
+
 Entry points take ``device``, default ``"cuda"``; they raise when CUDA is
 missing unless the caller passes ``device="cpu"``, which runs each kernel's
 plain PyTorch version instead.

@@ -1,4 +1,4 @@
-"""Shared PyTorch building blocks of the YOLOX family.
+"""Shared PyTorch building blocks of the detector families (YOLOX, RT-DETR).
 
 Counterpart of ``telescope_cam_detection_tpu/models/common.py``. The class
 names are the JAX package's; the attribute names are Megvii's
@@ -16,16 +16,22 @@ import torch
 import torch.nn as nn
 
 
+# The JAX package's ``ACTIVATIONS`` that the port's models use
+ACTIVATIONS = {"silu": nn.SiLU, "relu": nn.ReLU, "identity": nn.Identity}
+
+
 class ConvBnAct(nn.Module):
-    """Conv2D + BatchNorm(eps 1e-3) + SiLU, the basic detector block."""
+    """Conv2D + BatchNorm(eps 1e-3) + activation, the basic detector block
+    (SiLU for YOLOX; ReLU and identity for ResNet-vd and the RT-DETR
+    encoder)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
-                 stride: int = 1, groups: int = 1):
+                 stride: int = 1, groups: int = 1, act: str = "silu"):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, (kernel - 1) // 2,
                               groups=groups, bias=False)
         self.bn = nn.BatchNorm2d(out_ch, eps=1e-3)
-        self.act = nn.SiLU()
+        self.act = ACTIVATIONS[act]()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.bn(self.conv(x)))

@@ -1,10 +1,11 @@
-"""Flax weights -> PyTorch state dicts for the port's YOLOX and EVA02.
+"""Flax weights -> PyTorch state dicts for the port's YOLOX, EVA02, RT-DETR.
 
 Counterpart of ``telescope_cam_detection_tpu/models/convert.py``: the same
 Flax-path -> Megvii-name map (``flax_path_to_torch_name``), the same
-HWIO -> OIHW kernel transpose, read with numpy only. The port's EVA02 keeps
-the Flax tree's names, so its map (``eva02_state_dict_from_flax``) only
-renames leaves and transposes kernels. The committed
+HWIO -> OIHW kernel transpose, read with numpy only. The port's EVA02 and
+RT-DETR keep the Flax tree's names, so their maps
+(``eva02_state_dict_from_flax``, ``rtdetr_state_dict_from_flax``) only
+rename leaves and transpose kernels. The committed
 ``weights/*.npz`` archives store fp16 leaves under '/'-joined Flax paths;
 they are cast to fp32, the port's serving precision (the role
 ``cast_tree_like`` plays in the JAX package).
@@ -156,6 +157,40 @@ def eva02_state_dict_from_flax(flat: Mapping[Any, Any]
         name = ".".join(path[:-1] + [
             {"kernel": "weight", "scale": "weight"}.get(leaf_name, leaf_name)])
         out[name] = torch.from_numpy(
+            np.ascontiguousarray(value.astype(np.float32)))
+    return out
+
+
+def rtdetr_state_dict_from_flax(flat: Mapping[Any, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """Flax RT-DETR variables -> fp32 state dict of ``models/rtdetr.RTDETR``.
+
+    ``flat`` is the dict of ``weights/rtdetrv2_*.npz`` ('/'-joined paths
+    such as ``params/decoder0/cross_attn/value_proj/kernel``) or a Flax
+    variable tree ({"params": ..., "batch_stats": ...}), nested or
+    flattened. Conv kernels go HWIO -> OIHW; Dense kernels (in, out) become
+    ``nn.Linear`` weights (out, in); the ``DenseGeneral`` value projection
+    (in, heads, hd) is flattened to (in, heads * hd) first, its bias
+    (heads, hd) to (heads * hd,); BatchNorm and LayerNorm ``scale`` become
+    ``weight``, BatchNorm ``mean``/``var`` the running statistics."""
+    out: Dict[str, torch.Tensor] = {}
+    for (collection, *path), leaf in _flatten(flat).items():
+        value = np.asarray(leaf)
+        leaf_name = path[-1]
+        if path[-2] == "value_proj":
+            value = value.reshape(value.shape[0], -1) if leaf_name == "kernel" \
+                else value.reshape(-1)
+        if collection == "params":
+            if leaf_name == "kernel":
+                value = (np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4
+                         else value.T)
+            torch_leaf = {"kernel": "weight", "scale": "weight"}.get(
+                leaf_name, leaf_name)
+        elif collection == "batch_stats":
+            torch_leaf = {"mean": "running_mean", "var": "running_var"}[leaf_name]
+        else:
+            raise KeyError(f"unknown RT-DETR collection {collection}")
+        out[".".join(path[:-1] + [torch_leaf])] = torch.from_numpy(
             np.ascontiguousarray(value.astype(np.float32)))
     return out
 

@@ -1,11 +1,11 @@
 """On-device preprocess: uint8 BGR frames -> detector/classifier input.
 
-Counterpart of ``telescope_cam_detection_tpu/ops/preprocess.py``. Two of its
-three pixel conventions are here:
+Counterpart of ``telescope_cam_detection_tpu/ops/preprocess.py``, with its
+three pixel conventions:
   * YOLOX: plain bilinear stretch (no letterbox), stays BGR, raw 0..255
     floats, no normalisation.
+  * RT-DETR: resize, BGR->RGB, scale to 0..1.
   * EVA02 classifier: resize, BGR->RGB, scale to 0..1, CLIP mean/std.
-The RT-DETR convention comes with its slice.
 """
 from __future__ import annotations
 
@@ -25,6 +25,13 @@ def preprocess_yolox(frames_bgr_u8: torch.Tensor,
                      out_hw: Tuple[int, int]) -> torch.Tensor:
     """(N,H,W,3) uint8 BGR -> (N,h,w,3) fp32 BGR in 0..255."""
     return resize_bilinear_nhwc(frames_bgr_u8, out_hw)
+
+
+def preprocess_rtdetr(frames_bgr_u8: torch.Tensor,
+                      out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(N,H,W,3) uint8 BGR -> (N,h,w,3) fp32 RGB in 0..1. Multiplies by the
+    reciprocal of 255, as the JAX package does (not a division)."""
+    return resize_bilinear_nhwc(frames_bgr_u8, out_hw).flip(-1) * (1.0 / 255.0)
 
 
 def preprocess_classifier(

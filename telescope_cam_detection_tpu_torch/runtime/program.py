@@ -8,14 +8,19 @@ single-device branch:
     coordinates -> per-class confidence/size/wildlife filter
     -> (B, max_det, 7) rows, one readback.
 
+With ``detector_type="rtdetr"`` the detector is RT-DETRv2, which is NMS-free:
+resize, BGR->RGB, 0..1 -> RT-DETR forward (deformable sampling in CUDA
+kernel K3) -> top-k rows, truncated or padded with -1 rows to ``max_det``
+-> the same scale back, filter and compaction.
+
 PyTorch runs eagerly, so a "program" here is the function that closes over
 one capture resolution; ``stats["compilations"]`` counts how many were
 built. Thresholds are runtime tensors on the device, so ``update_filters``
 swaps tensors and builds nothing.
 
 Not yet ported, and refused at construction with ``ValueError``:
-``transfer="delta"``, ``gates="device"``, ``detector_type="rtdetr"``, a
-``mesh``; ``attach_classifier`` raises the same way.
+``transfer="delta"``, ``gates="device"``, a ``mesh``;
+``attach_classifier`` raises the same way.
 """
 from __future__ import annotations
 
@@ -35,9 +40,11 @@ from telescope_cam_detection_tpu_torch.coco_constants import (
 )
 from telescope_cam_detection_tpu_torch.device import resolve_device
 from telescope_cam_detection_tpu_torch.models.convert import load_strict
+from telescope_cam_detection_tpu_torch.models.rtdetr import build_rtdetr
 from telescope_cam_detection_tpu_torch.models.yolox import build_yolox, decode_outputs
 from telescope_cam_detection_tpu_torch.ops.nms import _stable_topk, batched_nms
 from telescope_cam_detection_tpu_torch.ops.preprocess import (
+    preprocess_rtdetr,
     preprocess_yolox,
     yuv420_to_bgr,
 )
@@ -51,7 +58,7 @@ _TRANSFERS = ("auto", "device", "host", "yuv420")
 @dataclasses.dataclass(frozen=True)
 class ProgramSpec:
     """Static configuration of one detector program."""
-    detector_type: str = "yolox"          # "rtdetr" is not yet ported
+    detector_type: str = "yolox"          # or "rtdetr"
     variant: str = "yolox-s"
     num_classes: int = NUM_COCO_CLASSES
     input_hw: Tuple[int, int] = (640, 640)
@@ -168,8 +175,8 @@ class DetectorDispatchTail:
 
 
 class DetectorProgram(DetectorDispatchTail):
-    """Host-facing YOLOX detector on one device: owns the model and a cache
-    of per-capture_hw programs."""
+    """Host-facing detector (YOLOX or RT-DETR) on one device: owns the model
+    and a cache of per-capture_hw programs."""
 
     def __init__(
         self,
@@ -179,14 +186,13 @@ class DetectorProgram(DetectorDispatchTail):
         device: Union[str, torch.device] = "cuda",
         mesh: Any = None,
     ):
-        """state_dict: Megvii-named fp32 weights
-        (``models/convert.yolox_state_dict_from_flax``); None builds a
-        random-init model from ``seed``. device: "cuda" (default) or "cpu"."""
+        """state_dict: fp32 weights (``models/convert.yolox_state_dict_from_flax``
+        or ``rtdetr_state_dict_from_flax``); None builds a random-init model
+        from ``seed``. device: "cuda" (default) or "cpu"."""
         if mesh is not None:
             raise ValueError("mesh: multi-device serving is not yet ported")
-        if spec.detector_type == "rtdetr":
-            raise ValueError("detector_type='rtdetr' is not yet ported")
-        if spec.detector_type != "yolox":
+        constructors = {"yolox": build_yolox, "rtdetr": build_rtdetr}
+        if spec.detector_type not in constructors:
             raise ValueError(f"unknown detector_type {spec.detector_type!r}")
         if spec.transfer == "delta":
             raise ValueError("transfer='delta' is not yet ported")
@@ -199,13 +205,14 @@ class DetectorProgram(DetectorDispatchTail):
                              "(valid: none, device)")
         self.device = resolve_device(device)
         self.spec = spec
+        build = constructors[spec.detector_type]
         if state_dict is None:
             logger.warning("DetectorProgram: random-init weights (no checkpoint)")
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(seed)
-                model = build_yolox(spec.variant, spec.num_classes)
+                model = build(spec.variant, spec.num_classes)
         else:
-            model = build_yolox(spec.variant, spec.num_classes)
+            model = build(spec.variant, spec.num_classes)
             load_strict(model, state_dict)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self._filters = FilterSettings()
@@ -266,15 +273,24 @@ class DetectorProgram(DetectorDispatchTail):
                  filt: Mapping[str, torch.Tensor]) -> torch.Tensor:
             if spec.transfer == "yuv420":
                 frames_u8 = yuv420_to_bgr(frames_u8).to(torch.uint8)
-            x = preprocess_yolox(frames_u8, spec.input_hw)
-            boxes, obj, cls_probs = decode_outputs(model(x))
-            rows = batched_nms(
-                boxes, obj, cls_probs,
-                conf_threshold=0.0,  # confidence via runtime tensors below
-                iou_threshold=spec.nms_threshold,
-                max_det=spec.max_det,
-                pre_nms_topk=spec.pre_nms_topk,
-            )
+            if spec.detector_type == "yolox":
+                x = preprocess_yolox(frames_u8, spec.input_hw)
+                boxes, obj, cls_probs = decode_outputs(model(x))
+                rows = batched_nms(
+                    boxes, obj, cls_probs,
+                    conf_threshold=0.0,  # confidence via runtime tensors below
+                    iou_threshold=spec.nms_threshold,
+                    max_det=spec.max_det,
+                    pre_nms_topk=spec.pre_nms_topk,
+                )
+            else:
+                # RT-DETR is NMS-free: predict's top-k gives (B, Q, 7) rows
+                rows = model.predict(preprocess_rtdetr(frames_u8, spec.input_hw))
+                rows = rows[:, :spec.max_det]
+                if rows.shape[1] < spec.max_det:
+                    rows = torch.cat([rows, rows.new_full(
+                        (rows.shape[0], spec.max_det - rows.shape[1], 7),
+                        -1.0)], dim=1)
             # scale boxes back to capture coords, then filter
             rows[..., :4] *= back_scale
             rows = _filter_rows(rows, filt)

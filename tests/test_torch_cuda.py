@@ -11,8 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from telescope_cam_detection_tpu_torch.ops import cuda_attention, cuda_nms
+from telescope_cam_detection_tpu_torch.ops import (
+    cuda_attention,
+    cuda_deform,
+    cuda_nms,
+)
 from telescope_cam_detection_tpu_torch.ops.attention import attention_reference
+from telescope_cam_detection_tpu_torch.ops.deform import (
+    ms_deformable_attention_reference,
+    split_levels,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +144,118 @@ def test_eva02_on_the_card_runs_the_kernel_in_every_block(device):
     assert cuda_attention.LAUNCHES == before + 3
     # fp32 end to end; sums in another order on the card
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+def _deform_inputs(seed, b, q, heads, hd, level_hw, lo=0.0, hi=1.0, p=4):
+    rng = np.random.default_rng(seed)
+    s = sum(h * w for h, w in level_hw)
+    values = torch.from_numpy(rng.normal(size=(b, s, heads, hd))
+                              .astype(np.float32))
+    locs = torch.from_numpy(rng.uniform(lo, hi, (b, q, heads, len(level_hw),
+                                                  p, 2)).astype(np.float32))
+    w = torch.softmax(torch.from_numpy(rng.normal(
+        size=(b, q, heads, len(level_hw) * p)).astype(np.float32)), -1)
+    return values, locs, w.reshape(b, q, heads, len(level_hw), p).contiguous()
+
+
+RT_640 = [(80, 80), (40, 40), (20, 20)]
+
+
+@pytest.mark.parametrize("b,q,heads,hd,level_hw,lo,hi", [
+    (4, 300, 8, 32, RT_640, 0.0, 1.0),              # the decoder at 640²
+    (2, 300, 8, 32, RT_640, -0.5, 1.5),             # outside [0, 1]
+    (2, 30, 8, 32, [(24, 40), (12, 20), (6, 10)], 0.0, 1.0),   # H != W
+    (2, 30, 4, 32, [(12, 16), (6, 8), (3, 4)], 0.05, 0.95),    # 4 heads
+    (1, 7, 2, 32, [(5, 9), (3, 5), (2, 3)], -0.2, 1.2),        # odd levels
+    (1, 5, 1, 32, [(4, 4), (1, 1), (1, 3)], -1.0, 2.0),        # 1-pixel rows
+])
+def test_deform_kernel_matches_plain(device, b, q, heads, hd, level_hw, lo, hi):
+    """Within rtol 1e-4, atol 1e-5 of the plain version (the tolerance of
+    tests/test_pallas_deform.py): the sum over levels and points runs in
+    the same order, but the plain version's sum over points may not."""
+    values, locs, w = _deform_inputs(q + hd, b, q, heads, hd, level_hw, lo, hi)
+    want = cuda_deform.deform_sample(values, level_hw, locs, w)   # CPU: plain
+    before = cuda_deform.LAUNCHES
+    got = cuda_deform.deform_sample(values.to(device), level_hw,
+                                    locs.to(device), w.to(device))
+    assert cuda_deform.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (b, q, heads, hd) and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    on_card = ms_deformable_attention_reference(
+        split_levels(values.to(device), level_hw), locs.to(device),
+        w.to(device))
+    torch.testing.assert_close(got, on_card, rtol=1e-4, atol=1e-5)
+
+
+def test_deform_kernel_on_pixel_centres_and_edges(device):
+    """Locations on multiples of half a pixel: loc * w - 0.5 must round as
+    the plain version's does, or a corner index moves by one pixel."""
+    level_hw = [(8, 10), (4, 5), (2, 3)]
+    rng = np.random.default_rng(3)
+    values, _, w = _deform_inputs(3, 2, 64, 4, 32, level_hw)
+    locs = np.empty((2, 64, 4, 3, 4, 2), np.float32)
+    for lvl, (h, wd) in enumerate(level_hw):
+        for axis, n in ((0, wd), (1, h)):
+            k = rng.integers(-2, 2 * n + 3, locs[:, :, :, lvl, :, axis].shape)
+            locs[:, :, :, lvl, :, axis] = (k / (2.0 * n)).astype(np.float32)
+    locs = torch.from_numpy(locs)
+    want = cuda_deform.deform_sample(values, level_hw, locs, w)
+    got = cuda_deform.deform_sample(values.to(device), level_hw,
+                                    locs.to(device), w.to(device))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_deform_kernel_refuses_bad_inputs(device):
+    level_hw = [(4, 4), (2, 2), (1, 1)]
+    values, locs, w = (x.to(device) for x in _deform_inputs(
+        0, 1, 6, 2, 32, level_hw))
+    before = cuda_deform.LAUNCHES
+    with pytest.raises(TypeError):
+        cuda_deform.deform_sample(values.double(), level_hw, locs, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_deform.deform_sample(values.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), level_hw, locs, w)
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        cuda_deform.deform_sample(values, level_hw, locs.cpu(), w)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(locs.numel() + 1, device=device)
+        cuda_deform.deform_sample(values, level_hw,
+                                  flat[1:].view(locs.shape), w)
+    # shapes the plain version takes but RT-DETR's kernel does not
+    for hd, hw, p in ((16, level_hw, 4), (32, level_hw[:2], 4),
+                      (32, level_hw, 2)):
+        v, lo, wt = (x.to(device) for x in _deform_inputs(
+            0, 1, 6, 2, hd, hw, p=p))
+        with pytest.raises(ValueError, match="the kernel takes"):
+            cuda_deform.deform_sample(v, hw, lo, wt)
+    assert cuda_deform.LAUNCHES == before      # nothing fell through
+
+
+def test_rtdetr_on_the_card_runs_the_kernel_in_every_decoder_layer(device):
+    """The decoder from the same selected queries on the CPU (plain version)
+    and on the card (K3, once per layer). Random torch weights leave the
+    encoder scores nearly tied, so the selection itself is not compared."""
+    from telescope_cam_detection_tpu_torch.models.rtdetr import RTDETR
+    torch.manual_seed(0)
+    model = RTDETR(num_classes=8, depths=(1, 1, 1, 1), decoder_layers=2,
+                   num_queries=30).eval()
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (2, 128, 160, 3)).astype(np.float32))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        levels = model.features(x)
+        memory, level_hw, query, boxes = model.select_queries(levels)
+        want = model.decode(memory, level_hw, query, boxes)
+        model.to(device)
+        for got, ref in zip(model.features(x.to(device)), levels):
+            torch.testing.assert_close(got.cpu(), ref, rtol=2e-4, atol=2e-4)
+        before = cuda_deform.LAUNCHES
+        got = model.decode(memory.to(device), level_hw, query.to(device),
+                           boxes.to(device))
+    assert cuda_deform.LAUNCHES == before + 2
+    # fp32 end to end; sums in another order on the card
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-4)

@@ -57,7 +57,7 @@ def test_port_import_pulls_in_no_jax():
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 28    # every module was imported
+    assert int(out.stdout.split()[-1]) >= 31    # every module was imported
 
 
 def test_entry_points_refuse_without_cuda():
@@ -75,6 +75,10 @@ def test_entry_points_refuse_without_cuda():
     prog = DetectorProgram(spec, device="cpu")
     rows = prog.detect_batch_rows(np.zeros((1, 64, 64, 3), np.uint8))
     assert rows.shape == (1, 300, 7)
+    rtdetr = ProgramSpec(detector_type="rtdetr", variant="rtdetrv2-r18vd",
+                         input_hw=(64, 64))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DetectorProgram(rtdetr)
 
 
 def test_stage2_entry_points_refuse_without_cuda():
@@ -102,6 +106,23 @@ def test_stage2_entry_points_refuse_without_cuda():
         from telescope_cam_detection_tpu_torch.ops.cuda_attention import attention
         q = torch.zeros(1, 4, 1, 16)
         attention(q, q.to("meta"), q)
+
+
+def test_deform_kernel_refuses_other_devices():
+    """K3's wrapper runs the plain version on CPU tensors only; any other
+    device that is not CUDA raises before a launch."""
+    from telescope_cam_detection_tpu_torch.ops import cuda_deform
+    values = torch.zeros(1, 5, 2, 32)
+    locs, weights = torch.zeros(1, 3, 2, 2, 4, 2), torch.zeros(1, 3, 2, 2, 4)
+    level_hw = [(2, 2), (1, 1)]
+    assert cuda_deform.deform_sample(values, level_hw, locs, weights).shape \
+        == (1, 3, 2, 32)
+    before = cuda_deform.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        cuda_deform.deform_sample(values.to("meta"), level_hw, locs, weights)
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        cuda_deform.deform_sample(values, level_hw, locs.to("meta"), weights)
+    assert cuda_deform.LAUNCHES == before
 
 
 def _run_smoke(cwd):

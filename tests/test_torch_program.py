@@ -156,15 +156,30 @@ def test_update_filters_and_capture_hw(nano):
 @pytest.mark.parametrize("spec_kw,kw,match", [
     (dict(transfer="delta"), {}, "not yet ported"),
     (dict(gates="device"), {}, "not yet ported"),
-    (dict(detector_type="rtdetr"), {}, "not yet ported"),
+    # RT-DETR is ported (test_rtdetr_spec_builds_and_serves_rows); its
+    # delta transfer is not
+    (dict(detector_type="rtdetr", variant="rtdetrv2-r18vd", transfer="delta"),
+     {}, "not yet ported"),
     ({}, dict(mesh=object()), "not yet ported"),
     (dict(transfer="bogus"), {}, "unknown transfer"),
 ])
 def test_unported_options_refused(spec_kw, kw, match):
-    spec = port_program.ProgramSpec(variant="yolox-nano", input_hw=(64, 64),
-                                    **spec_kw)
+    spec = port_program.ProgramSpec(
+        **{"variant": "yolox-nano", "input_hw": (64, 64), **spec_kw})
     with pytest.raises(ValueError, match=match):
         port_program.DetectorProgram(spec, device="cpu", **kw)
+
+
+def test_rtdetr_spec_builds_and_serves_rows():
+    """detector_type="rtdetr" builds r18vd from the seed on the CPU and
+    returns (B, max_det, 7) rows: 300 queries cut to max_det."""
+    spec = port_program.ProgramSpec(detector_type="rtdetr",
+                                    variant="rtdetrv2-r18vd",
+                                    input_hw=(64, 64), max_det=100)
+    prog = port_program.DetectorProgram(spec, device="cpu")
+    assert prog.model.decoder_layers == 3
+    rows = prog.detect_batch_rows(np.zeros((2, 64, 64, 3), np.uint8))
+    assert rows.shape == (2, 100, 7)
 
 
 def test_attach_classifier_refused():

@@ -94,3 +94,30 @@ def flax_eva02_variables(model, image_size: int, seed: int = 5):
         return jnp.asarray(value.astype(np.float32))
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def flax_rtdetr_variables(model, size: int, seed: int = 7):
+    """A Flax RT-DETR variable tree filled from a numpy seed (structure from
+    ``jax.eval_shape`` of ``model.init``): kernels ~ N(0, 1/fan_in) (the
+    ``DenseGeneral`` value projection's fan-in is its first axis), BatchNorm
+    variances and scales near 1, biases and means small."""
+    shapes = jax.eval_shape(
+        lambda x: model.init(jax.random.PRNGKey(0), x, train=False),
+        jnp.zeros((1, size, size, 3)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1])) if leaf.ndim != 3 \
+                else leaf.shape[0]
+            value = rng.normal(0.0, 1.0 / np.sqrt(fan_in), leaf.shape)
+        elif name == "var":
+            value = rng.uniform(0.5, 1.5, leaf.shape)
+        elif name == "scale":
+            value = rng.uniform(0.8, 1.2, leaf.shape)
+        else:                                   # bias, BN mean
+            value = rng.normal(0.0, 0.05, leaf.shape)
+        return jnp.asarray(value.astype(np.float32))
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
