@@ -19,7 +19,11 @@ import torch
 from telescope_cam_detection_tpu_torch.ops.cuda_build import CudaLibrary
 from telescope_cam_detection_tpu_torch.ops.nms import _greedy_suppress, iou_matrix
 
-_SMEM_LIMIT = 48 * 1024        # default dynamic shared memory of one block
+# The largest K: the scan's shared memory, a two-stage ring of 64 x 33 mask
+# words and one word per 64 boxes, is then 41.8 KB, within the 48 KB a block
+# has by default; 65,536 is above the anchor count of a 1280x1280 YOLOX
+# input (33,600).
+MAX_K = 65536
 
 # Launches of the kernel (one per ``suppress`` call on CUDA tensors).
 LAUNCHES = 0
@@ -39,8 +43,12 @@ LIBRARY = CudaLibrary("nms_suppress.cu", ("-fmad=false",), _declare)
 
 def suppress_reference(boxes: torch.Tensor, valid: torch.Tensor,
                        iou_threshold: float = 0.45) -> torch.Tensor:
-    """The kernel's plain PyTorch version, on any device."""
-    return _greedy_suppress(iou_matrix(boxes, boxes), valid, iou_threshold)
+    """The kernel's plain PyTorch version, on any device. The (B, K, K)
+    IoU matrix is built 4096 rows at a time (the same values: every entry
+    is elementwise), so the largest K fits a card's memory."""
+    iou = torch.cat([iou_matrix(boxes[:, i:i + 4096], boxes)
+                     for i in range(0, max(boxes.shape[1], 1), 4096)], dim=1)
+    return _greedy_suppress(iou, valid, iou_threshold)
 
 
 def suppress(boxes: torch.Tensor, valid: torch.Tensor,
@@ -69,9 +77,9 @@ def suppress(boxes: torch.Tensor, valid: torch.Tensor,
     b, k = valid.shape
     if b == 0 or k == 0:
         return torch.zeros((b, k), dtype=torch.bool, device=boxes.device)
+    if k > MAX_K:
+        raise ValueError(f"K={k} exceeds the scan kernel's largest, {MAX_K}")
     words = (k + 63) // 64
-    if words * 8 + k > _SMEM_LIMIT:
-        raise ValueError(f"K={k} exceeds the scan kernel's shared memory")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
     fn = LIBRARY.load().nms_suppress_launch

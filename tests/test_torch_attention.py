@@ -98,3 +98,98 @@ def test_bad_inputs_raise():
         cuda_attention.attention(q.double(), q.double(), q.double())
     with pytest.raises(TypeError):
         cuda_attention.attention(q, q.to(torch.bfloat16), q)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 route of the CUDA kernel (csrc/attention.cu) takes each product
+# as three TF32 products on the tensor cores. A numpy emulation of that
+# split, against an fp64 reference, at the distributions of chip_smoke.py's
+# K2 cases.
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10
+    mantissa bits (the low 13 bits of the fp32 pattern cleared)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _matmul(a, b):
+    """a @ b through torch (its CPU threads are capped per worker, numpy's
+    BLAS threads are not)."""
+    return torch.matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+
+
+def _mm3(a, b, terms=3):
+    """a @ b with each operand split hi + lo: lo hi' + hi lo' + hi hi',
+    products exact (TF32 x TF32 fits fp32's 24 bits), sums in fp32.
+    terms=1 is plain TF32 (hi hi' alone)."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    out = _matmul(a_hi, b_hi)
+    if terms == 3:
+        out = _matmul(a_lo, b_hi) + _matmul(a_hi, b_lo) + out
+    return out.astype(np.float32)
+
+
+def _emulated_attention(q, k, v, terms=3):
+    """The kernel's arithmetic for (H, T, D) fp32 inputs: split scores, the
+    softmax in fp32 with exp2 and log2(e) folded into the scale (one fma),
+    p split for p v."""
+    c = np.float32(1.0 / np.sqrt(q.shape[-1]) * np.log2(np.e))
+    s = _mm3(q, np.ascontiguousarray(np.swapaxes(k, -1, -2)), terms)
+    m = s.max(-1, keepdims=True)
+    # fmaf(s, c, -m c): s c exact in fp64, one rounding to fp32
+    arg = (s.astype(np.float64) * c - (m * c).astype(np.float32)).astype(
+        np.float32)
+    p = np.exp2(arg).astype(np.float32)
+    return _mm3(p, v, terms) / p.sum(-1, keepdims=True, dtype=np.float32)
+
+
+def _exact_attention(q, k, v):
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    s = _matmul(q, np.ascontiguousarray(np.swapaxes(k, -1, -2)))
+    s = s / np.sqrt(q.shape[-1])
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return _matmul(p, v) / p.sum(-1, keepdims=True)
+
+
+@pytest.mark.parametrize("t,h,d,q_scale", [
+    (577, 2, 64, 1.0),     # eva02-large@336 sequence
+    (65, 6, 64, 1.0),      # eva02-tiny@112 sequence
+    (130, 2, 48, 1.0),
+    (33, 2, 128, 1.0),
+    (577, 2, 64, 30.0),    # scores past 88, q and k on quarters
+])
+def test_3xtf32_split_holds_the_fp32_tolerance(t, h, d, q_scale):
+    rng = np.random.default_rng(t + d)
+    q, k, v = (rng.normal(0, 1, (h, t, d)).astype(np.float32)
+               for _ in range(3))
+    if q_scale != 1.0:
+        q = (np.round(q * 4) / 4 * q_scale).astype(np.float32)
+        k = (np.round(k * 4) / 4).astype(np.float32)
+        # lo == 0: the tensor cores see q and k exactly
+        assert not _split(q)[1].any() and not _split(k)[1].any()
+    want = _exact_attention(q, k, v)
+    err3 = np.abs(_emulated_attention(q, k, v) - want).max()
+    assert err3 < FP32_TOL / 4, err3            # well inside 2e-5
+    if q_scale == 1.0:
+        # one TF32 product alone would not hold it: the split is needed
+        err1 = np.abs(_emulated_attention(q, k, v, terms=1) - want).max()
+        assert err1 > FP32_TOL, err1
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)               # TF32's spacing at 1
+    half = np.float32(2.0 ** -11)
+    x = np.array([one + half, -(one + half), one + half * np.float32(0.5),
+                  one + ulp + half], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(x), np.array([one + ulp, -(one + ulp), one, one + 2 * ulp],
+                           np.float32))

@@ -32,24 +32,35 @@ def device():
     return torch.device("cuda")
 
 
-def _boxes(seed, b, k):
+def _boxes(seed, b, k, img=640.0):
     rng = np.random.default_rng(seed)
-    c = rng.uniform(0, 640, (b, k, 2))
+    c = rng.uniform(0, img, (b, k, 2))
     wh = rng.uniform(8, 120, (b, k, 2))
     return (torch.from_numpy(np.concatenate([c - wh / 2, c + wh / 2], -1)
                              .astype(np.float32)),
             torch.from_numpy(rng.uniform(size=(b, k)) < 0.8))
 
 
-@pytest.mark.parametrize("b,k", [(8, 1000), (3, 777), (1, 64), (2, 65), (4, 1)])
+@pytest.mark.parametrize("b,k", [(8, 1000), (3, 777), (1, 64), (2, 65), (4, 1),
+                                 (2, 63), (2, 2048), (1, 2300),
+                                 (1, cuda_nms.MAX_K)])
 def test_suppress_kernel_matches_plain(device, b, k):
-    boxes, valid = _boxes(k, b, k)
+    """K around the scan's 64-row chunks, past its 32-word window (2300) and
+    at the largest K the wrapper takes. Past 2048 the boxes spread wider
+    (chains stay short) and the plain version runs on the card (it is K^2
+    on the host)."""
+    boxes, valid = _boxes(k, b, k, img=640.0 * max(1.0, (k / 4000) ** 0.5))
     before = cuda_nms.LAUNCHES
     got = cuda_nms.suppress(boxes.to(device), valid.to(device), 0.45)
     assert cuda_nms.LAUNCHES == before + 1
     torch.cuda.synchronize()
-    want = cuda_nms.suppress(boxes, valid, 0.45)        # CPU: plain version
-    assert torch.equal(got.cpu(), want)
+    if k > 2048:
+        want = cuda_nms.suppress_reference(boxes.to(device), valid.to(device),
+                                           0.45)
+        assert torch.equal(got, want)
+    else:
+        want = cuda_nms.suppress(boxes, valid, 0.45)    # CPU: plain version
+        assert torch.equal(got.cpu(), want)
 
 
 def test_suppress_kernel_refuses_bad_inputs(device):
@@ -61,6 +72,12 @@ def test_suppress_kernel_refuses_bad_inputs(device):
                           .transpose(0, 1), valid.to(device))
     with pytest.raises(ValueError):
         cuda_nms.suppress(boxes.to(device), valid)
+    k = cuda_nms.MAX_K + 1
+    before = cuda_nms.LAUNCHES
+    with pytest.raises(ValueError, match="largest"):
+        cuda_nms.suppress(torch.zeros((1, k, 4), device=device),
+                          torch.ones((1, k), dtype=torch.bool, device=device))
+    assert cuda_nms.LAUNCHES == before
 
 
 def _qkv(shape, dtype, device, seed=0):
@@ -79,10 +96,15 @@ def _qkv(shape, dtype, device, seed=0):
     ((3, 40, 2, 32), torch.float32, 2e-5),
     ((2, 577, 4, 64), torch.bfloat16, 2e-2),
     ((2, 33, 2, 128), torch.bfloat16, 2e-2),
-])
+] + [((2, t, 3, d), dtype, tol)
+     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2))
+     for t in (1, 15, 16, 17, 63, 64, 65, 127, 129, 577)
+     for d in (16, 32, 48, 64, 80, 96, 112, 128)])
 def test_attention_kernel_matches_plain(device, shape, dtype, tol):
     """fp32 within 2e-5 (another order of summation), bf16 within 2e-2 (the
-    output's rounding), the tolerances of tests/test_pallas_attention.py."""
+    output's rounding), the tolerances of tests/test_pallas_attention.py.
+    The generated cases take every head dim in both types, with T around
+    the 16-row mma fragments and the 64-row and 64-key tiles."""
     q, k, v = _qkv(shape, dtype, device, seed=shape[1])
     before = cuda_attention.LAUNCHES
     got = cuda_attention.attention(q, k, v)

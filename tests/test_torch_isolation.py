@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "telescope_cam_detection_tpu")
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "chip_kernel_ab.py"]
 
 
 def _imported_roots(path: Path):
