@@ -15,7 +15,7 @@ kernel's launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -46,6 +46,39 @@ def _declare(lib: ctypes.CDLL) -> None:
 # -fmad=false: corner indices round as the plain version's (see the source)
 LIBRARY = CudaLibrary("deform.cu", ("-fmad=false",), _declare)
 
+# shapes that passed the kernel's shape checks -> (B, S, Q, heads, the
+# levels' (h, w, start) triples for the launch); checked once per shape
+_SHAPES: Dict[tuple, Tuple[int, int, int, int, ctypes.Array]] = {}
+
+
+def _launch_shape(values: torch.Tensor, level_hw: Sequence[Tuple[int, int]],
+                  locs: torch.Tensor, weights: torch.Tensor):
+    key = (tuple(map(tuple, level_hw)), values.shape, locs.shape,
+           weights.shape)
+    shape = _SHAPES.get(key)
+    if shape is not None:
+        return shape
+    check_deform_inputs(values, level_hw, locs, weights)
+    b, s, heads, hd = values.shape
+    q, n_levels, points = locs.shape[1], locs.shape[3], locs.shape[4]
+    if (n_levels, points, hd) != (LEVELS, POINTS, HEAD_DIM):
+        raise ValueError(f"the kernel takes {LEVELS} levels, {POINTS} points "
+                         f"and head dim {HEAD_DIM} (RT-DETR's decoder), got "
+                         f"{n_levels}, {points}, {hd}")
+    if s * heads * hd >= 2 ** 31:
+        raise ValueError(f"the kernel offsets an image's values in int32: "
+                         f"{s} positions x {heads} heads x {hd} is too many")
+    if b > 65535 or heads > 65535:
+        raise ValueError(f"the kernel's grid takes at most 65535 images and "
+                         f"heads, got {b} and {heads}")
+    triples, start = [], 0
+    for h, w in key[0]:
+        triples += [h, w, start]
+        start += h * w
+    shape = _SHAPES[key] = (b, s, q, heads,
+                            (ctypes.c_int * len(triples))(*triples))
+    return shape
+
 
 def deform_sample(values: torch.Tensor, level_hw: Sequence[Tuple[int, int]],
                   locs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -57,16 +90,17 @@ def deform_sample(values: torch.Tensor, level_hw: Sequence[Tuple[int, int]],
     weights (B, Q, heads, L, P) softmaxed. CPU tensors take the plain
     version (any L, P, hd); CUDA tensors launch the kernel on the current
     stream (L = 3, P = 4, hd = 32 only), or raise."""
-    check_deform_inputs(values, level_hw, locs, weights)
-    devices = {values.device, locs.device, weights.device}
-    if devices == {torch.device("cpu")}:
-        return ms_deformable_attention_reference(
-            split_levels(values, level_hw), locs, weights)
-    if len(devices) != 1 or values.device.type != "cuda":
+    device = values.device
+    if not (values.is_cuda and locs.device == device
+            and weights.device == device):
+        check_deform_inputs(values, level_hw, locs, weights)
+        if {device.type, locs.device.type, weights.device.type} == {"cpu"}:
+            return ms_deformable_attention_reference(
+                split_levels(values, level_hw), locs, weights)
         raise ValueError(f"deform_sample needs values, locs, weights on one "
-                         f"CUDA device or on the CPU, got {values.device}, "
+                         f"CUDA device or on the CPU, got {device}, "
                          f"{locs.device}, {weights.device}")
-    if any(x.dtype != torch.float32 for x in (values, locs, weights)):
+    if not (values.dtype == locs.dtype == weights.dtype == torch.float32):
         raise TypeError(f"expected float32 values, locs, weights, got "
                         f"{values.dtype}, {locs.dtype}, {weights.dtype}")
     if not (values.is_contiguous() and locs.is_contiguous()
@@ -74,26 +108,21 @@ def deform_sample(values: torch.Tensor, level_hw: Sequence[Tuple[int, int]],
         raise ValueError("deform_sample needs contiguous values, locs, weights")
     if locs.data_ptr() % 8:
         raise ValueError("locs must be 8-byte aligned (read as float2)")
-    b, s, heads, hd = values.shape
-    q, n_levels, points = locs.shape[1], locs.shape[3], locs.shape[4]
-    if (n_levels, points, hd) != (LEVELS, POINTS, HEAD_DIM):
-        raise ValueError(f"the kernel takes {LEVELS} levels, {POINTS} points "
-                         f"and head dim {HEAD_DIM} (RT-DETR's decoder), got "
-                         f"{n_levels}, {points}, {hd}")
-    out = torch.empty((b, q, heads, hd), dtype=torch.float32,
-                      device=values.device)
+    if values.data_ptr() % 16:
+        raise ValueError("values must be 16-byte aligned (read as float4)")
+    b, s, q, heads, levels = _launch_shape(values, level_hw, locs, weights)
+    out = torch.empty((b, q, heads, HEAD_DIM), dtype=torch.float32,
+                      device=device)
     if out.numel() == 0:
         return out
-    triples, start = [], 0
-    for h, w in level_hw:
-        triples += [h, w, start]
-        start += h * w
     fn = LIBRARY.load().deform_launch
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(values.data_ptr(), (ctypes.c_int * len(triples))(*triples),
-                 locs.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                 b, s, q, heads, stream)
+    args = (values.data_ptr(), levels, locs.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), b, s, q, heads)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"deform launch failed: CUDA error {err}")
     global LAUNCHES

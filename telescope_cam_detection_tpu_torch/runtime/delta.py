@@ -2,8 +2,9 @@
 
 Counterpart of the numpy packer of ``telescope_cam_detection_tpu``
 (``runtime/delta.py bgr_to_yuv_planes_numpy`` and ``runtime/program.py
-_pack_yuv420_numpy``). Tile deltas and the native packer come with the
-delta-transfer slice.
+_pack_yuv420_numpy``): the plain version of the native packer
+(``utils/native.py bgr_to_yuv420``) that ``transfer="yuv420"`` runs, which
+is bit-identical to it. Tile deltas come with the delta-transfer slice.
 """
 from __future__ import annotations
 

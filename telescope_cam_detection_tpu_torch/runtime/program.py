@@ -48,7 +48,7 @@ from telescope_cam_detection_tpu_torch.ops.preprocess import (
     preprocess_yolox,
     yuv420_to_bgr,
 )
-from telescope_cam_detection_tpu_torch.runtime.delta import pack_yuv420_numpy
+from telescope_cam_detection_tpu_torch.utils import native
 
 logger = logging.getLogger(__name__)
 
@@ -65,12 +65,12 @@ class ProgramSpec:
     nms_threshold: float = 0.45
     max_det: int = 300
     pre_nms_topk: int = 1000
-    # Transfer policy. "auto": resize on the host (cv2) when the capture
-    # resolution exceeds the model input, so fewer bytes cross to the
-    # device; "host": always resize on the host; "device": ship capture
-    # frames and resize on the device; "yuv420": host resize, then pack
-    # to planar 4:2:0 (half the bytes, slight chroma loss). "delta" is not
-    # yet ported.
+    # Transfer policy. "auto": resize on the host (cv2, else the native
+    # library) when the capture resolution exceeds the model input, so
+    # fewer bytes cross to the device; "host": always resize on the host;
+    # "device": ship capture frames and resize on the device; "yuv420":
+    # host resize, then pack to planar 4:2:0 with the native library (half
+    # the bytes, slight chroma loss). "delta" is not yet ported.
     transfer: str = "auto"
     # Compact the readback to the top-K valid rows (None: all max_det).
     readback_topk: Optional[int] = None
@@ -247,15 +247,29 @@ class DetectorProgram(DetectorDispatchTail):
                 self.spec.input_hw[0] * self.spec.input_hw[1])
 
     def _resize_host(self, frames: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) -> (B, *input_hw, 3) on the host: cv2 where it
+        imports (its SIMD resize is the faster), else the port's native
+        library (``utils/native.py``), as the reference does. Records the
+        route and its ms in ``stats``."""
+        ih, iw = self.spec.input_hw
+        t0 = time.perf_counter()
         try:
             import cv2
-        except ImportError as e:
-            raise RuntimeError(
-                "host resize needs cv2; use transfer='device', or pass frames "
-                "already at input_hw with capture_hw") from e
-        ih, iw = self.spec.input_hw
-        return np.stack([cv2.resize(f, (iw, ih), interpolation=cv2.INTER_LINEAR)
-                         for f in frames])
+        except ImportError:
+            try:
+                frames = native.resize_batch(frames, (ih, iw))
+            except RuntimeError as e:
+                raise RuntimeError("host-resize needs cv2 or the native "
+                                   f"frameio library: {e}") from e
+            route = "native"
+        else:
+            frames = np.stack([cv2.resize(f, (iw, ih),
+                                          interpolation=cv2.INTER_LINEAR)
+                               for f in frames])
+            route = "cv2"
+        self.stats["host_resize"] = route
+        self.stats["host_resize_ms"] = (time.perf_counter() - t0) * 1e3
+        return frames
 
     # -- program construction -------------------------------------------------
     def _detect_core(self, capture_hw: Tuple[int, int]) -> Callable:
@@ -332,7 +346,7 @@ class DetectorProgram(DetectorDispatchTail):
         if self._host_resize_active(frame_hw):
             frames = self._resize_host(frames)
         if self.spec.transfer == "yuv420":
-            frames = np.stack([pack_yuv420_numpy(f) for f in frames])
+            frames = np.stack([native.bgr_to_yuv420(f) for f in frames])
         fn = self._get_program(capture_hw)
         x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
         rows = fn(x, self._filter_arrays)

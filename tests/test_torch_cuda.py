@@ -208,6 +208,38 @@ def test_deform_kernel_matches_plain(device, b, q, heads, hd, level_hw, lo, hi):
         split_levels(values.to(device), level_hw), locs.to(device),
         w.to(device))
     torch.testing.assert_close(got, on_card, rtol=1e-4, atol=1e-5)
+    # the kernel keeps the plain version's order of arithmetic: bit-equal
+    assert torch.equal(got.cpu(), want) and torch.equal(got, on_card)
+
+
+@pytest.mark.parametrize("b,q,heads,level_hw", [
+    (8, 300, 8, RT_640),        # the decoder at the auto path's B=8
+    (1, 301, 8, RT_640),        # 2,408 items: a ragged last block of 16
+    (3, 7, 2, [(5, 9), (3, 5), (2, 3)]),    # 42 items, ragged
+])
+def test_deform_kernel_bit_equal_at_decoder_shapes(device, b, q, heads,
+                                                   level_hw):
+    values, locs, w = _deform_inputs(b * q + heads, b, q, heads, 32, level_hw,
+                                     -0.1, 1.1)
+    want = cuda_deform.deform_sample(values, level_hw, locs, w)   # CPU: plain
+    before = cuda_deform.LAUNCHES
+    got = cuda_deform.deform_sample(values.to(device), level_hw,
+                                    locs.to(device), w.to(device))
+    torch.cuda.synchronize()
+    assert cuda_deform.LAUNCHES == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_deform_kernel_batch_zero(device):
+    """B = 0 (and Q = 0) return an empty output and launch nothing."""
+    before = cuda_deform.LAUNCHES
+    for b, q in ((0, 300), (2, 0)):
+        values, locs, w = (x.to(device) for x in _deform_inputs(
+            0, b, q, 8, 32, RT_640))
+        got = cuda_deform.deform_sample(values, RT_640, locs, w)
+        assert got.shape == (b, q, 8, 32) and got.device.type == "cuda"
+    assert cuda_deform.LAUNCHES == before
 
 
 def test_deform_kernel_on_pixel_centres_and_edges(device):
@@ -227,6 +259,7 @@ def test_deform_kernel_on_pixel_centres_and_edges(device):
                                     locs.to(device), w.to(device))
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_deform_kernel_refuses_bad_inputs(device):
@@ -245,6 +278,10 @@ def test_deform_kernel_refuses_bad_inputs(device):
         flat = torch.zeros(locs.numel() + 1, device=device)
         cuda_deform.deform_sample(values, level_hw,
                                   flat[1:].view(locs.shape), w)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(values.numel() + 2, device=device)
+        cuda_deform.deform_sample(flat[2:].view(values.shape), level_hw,
+                                  locs, w)
     # shapes the plain version takes but RT-DETR's kernel does not
     for hd, hw, p in ((16, level_hw, 4), (32, level_hw[:2], 4),
                       (32, level_hw, 2)):
@@ -281,3 +318,50 @@ def test_rtdetr_on_the_card_runs_the_kernel_in_every_decoder_layer(device):
     # fp32 end to end; sums in another order on the card
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-4)
+
+
+def _rows_iou(a, b):
+    lt = np.maximum(a[None, :2], b[:, :2])
+    rb = np.minimum(a[None, 2:4], b[:, 2:4])
+    inter = np.prod(np.clip(rb - lt, 0, None), axis=-1)
+    union = (np.prod(a[2:4] - a[:2]) + np.prod(b[:, 2:4] - b[:, :2], axis=-1)
+             - inter)
+    return np.where(union > 0, inter / np.maximum(union, 1e-9), 0.0)
+
+
+def test_native_resize_feeds_the_cuda_program(device, monkeypatch):
+    """transfer="auto" with 1440x2560 frames and no cv2: the port's native
+    library resizes on the host, and the card's rows match the CPU
+    program's (the shipped YOLOX-S, confident rows at IoU >= 0.99 with equal
+    classes)."""
+    import sys
+    from pathlib import Path
+    from telescope_cam_detection_tpu_torch.models.convert import (
+        load_npz, yolox_state_dict_from_flax)
+    from telescope_cam_detection_tpu_torch.runtime import program
+    from telescope_cam_detection_tpu_torch.utils.frames import (
+        SyntheticFrameSource)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    state = yolox_state_dict_from_flax(load_npz(
+        Path(__file__).resolve().parent.parent / "weights"
+        / "yolox_s_scene640.npz"))
+    src = SyntheticFrameSource(width=2560, height=1440, seed=0, object_size=240)
+    frames = np.stack([src.frame_at(40 * i) for i in range(2)])
+    loose = program.FilterSettings(conf_threshold=0.0, wildlife_only=False)
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        prog = program.DetectorProgram(program.ProgramSpec(transfer="auto"),
+                                       state_dict=state, device=dev)
+        prog.update_filters(loose)
+        rows[dev] = prog.detect_batch_rows(frames)
+        assert prog.stats["host_resize"] == "native"
+    matched = 0
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        got, want = got[got[:, 5] >= 0], want[want[:, 5] >= 0]
+        for src_rows, dst in ((got, want), (want, got)):
+            for row in src_rows[src_rows[:, 4] * src_rows[:, 5] >= 0.26]:
+                same = dst[dst[:, 6] == row[6]]
+                assert len(same), f"no partner for {row}"
+                assert _rows_iou(row, same).max() >= 0.99
+                matched += 1
+    assert matched > 0

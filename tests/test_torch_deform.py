@@ -136,3 +136,84 @@ def test_deform_sample_refuses_bad_shapes(change, match):
     args.update(change)
     with pytest.raises(ValueError, match=match):
         cuda_deform.deform_sample(**args)
+
+
+def _two_phase_mirror(values, level_hw, locs, weights):
+    """numpy float32 mirror of csrc/deform.cu's two phases. Phase 1: per
+    sample (item, level, point), the four clamped corner positions, the
+    four bilinear products and the weight (the kernel's shared-memory
+    table). Phase 2: per item, the gather in the kernel's order: per level
+    c00 g00 + c01 g01 + c10 g10 + c11 g11 left to right, times the weight,
+    summed over levels from 0, then over points from 0. Every numpy
+    operation here rounds once in float32, as -fmad=false makes the
+    kernel's."""
+    f32 = np.float32
+    b, _, heads, hd = values.shape
+    _, q, _, n_levels, n_points, _ = locs.shape
+    loc = locs.reshape(-1, n_levels, n_points, 2)
+    items = loc.shape[0]
+    pos = np.empty((items, n_levels, n_points, 4), np.int64)
+    coef = np.empty((items, n_levels, n_points, 4), f32)
+    start = 0
+    for lvl, (h, w) in enumerate(level_hw):
+        x = loc[:, lvl, :, 0] * f32(w) - f32(0.5)
+        y = loc[:, lvl, :, 1] * f32(h) - f32(0.5)
+        x0, y0 = np.floor(x), np.floor(y)
+        fx, fy = x - x0, y - y0
+        xa = np.clip(x0, 0, w - 1).astype(np.int64)
+        xb = np.clip(x0 + f32(1), 0, w - 1).astype(np.int64)
+        ya = start + np.clip(y0, 0, h - 1).astype(np.int64) * w
+        yb = start + np.clip(y0 + f32(1), 0, h - 1).astype(np.int64) * w
+        pos[:, lvl] = np.stack([ya + xa, ya + xb, yb + xa, yb + xb], -1)
+        ox, oy = f32(1) - fx, f32(1) - fy
+        coef[:, lvl] = np.stack([oy * ox, oy * fx, fy * ox, fy * fx], -1)
+        start += h * w
+    wgt = weights.reshape(items, n_levels, n_points)
+    image = np.arange(items) // (q * heads)
+    head = np.arange(items) % heads
+    total = np.zeros((items, hd), f32)
+    for p in range(n_points):
+        acc = np.zeros((items, hd), f32)
+        for lvl in range(n_levels):
+            g = [values[image, pos[:, lvl, p, k], head] for k in range(4)]
+            c = [coef[:, lvl, p, k, None] for k in range(4)]
+            s = c[0] * g[0]
+            s = s + c[1] * g[1]
+            s = s + c[2] * g[2]
+            s = s + c[3] * g[3]
+            acc = acc + s * wgt[:, lvl, p, None]
+        total = total + acc
+    return total.reshape(b, q, heads, hd)
+
+
+def _half_pixel_locs(rng, shape, level_hw):
+    """Locations on multiples of half a pixel of each level, a little past
+    the border too: the coordinates where a rounding error moves a corner."""
+    locs = np.empty(shape, np.float32)
+    for lvl, (h, w) in enumerate(level_hw):
+        for axis, n in ((0, w), (1, h)):
+            k = rng.integers(-2, 2 * n + 3, shape[:3] + shape[4:5])
+            locs[:, :, :, lvl, :, axis] = (k / (2.0 * n)).astype(np.float32)
+    return locs
+
+
+@pytest.mark.parametrize("case", ["decoder", "outside", "half_pixel",
+                                  "one_pixel"])
+def test_two_phase_mirror_bit_equal_to_plain(case):
+    """The kernel's arithmetic, a geometry table and then the gather, is
+    bit-equal to ms_deformable_attention_reference (not merely within the
+    tolerance): RT-DETR's shape (3 levels, 4 points, head dim 32) at small
+    levels, locations outside [0, 1], on pixel centres and edges, and levels
+    one pixel wide."""
+    level_hw = {"one_pixel": [(4, 4), (1, 1), (1, 3)]}.get(
+        case, [(12, 16), (6, 8), (3, 4)])
+    lo, hi = {"outside": (-0.5, 1.5), "one_pixel": (-1.0, 2.0)}.get(
+        case, (0.0, 1.0))
+    values, locs, weights = _inputs(11, 2, 13, 8, 32, 4, level_hw, lo, hi)
+    if case == "half_pixel":
+        locs = _half_pixel_locs(np.random.default_rng(12), locs.shape, level_hw)
+    flat = np.concatenate([v.reshape(2, -1, 8, 32) for v in values], 1)
+    got = _two_phase_mirror(flat, level_hw, locs, weights)
+    want = _port(values, locs, weights)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)

@@ -5,7 +5,12 @@ Both programs serve the same weights and frames. Confident rows must match
 one to one at IoU >= 0.99 with equal classes, in both directions, as in
 tests/test_torch_parity.py: rows within a margin of their class threshold
 may legitimately flip between frameworks, which sum the conv stacks in
-another order."""
+another order.
+
+The JAX package's native frameio library (its YUV420 packer, and its resize
+where cv2 is blocked) is built from a copy of native/ under a temporary
+directory for this module, never into the repository's native/."""
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -20,9 +25,11 @@ from telescope_cam_detection_tpu_torch.models.convert import (
     load_npz,
     yolox_state_dict_from_flax,
 )
+from telescope_cam_detection_tpu_torch.ops import cuda_build
 from telescope_cam_detection_tpu_torch.runtime import program as port_program
+from telescope_cam_detection_tpu_torch.utils import native as port_native
 from telescope_cam_detection_tpu_torch.utils.frames import SyntheticFrameSource
-from torch_port_utils import flax_yolox_variables
+from torch_port_utils import flax_yolox_variables, redirect_jax_native
 
 WEIGHTS = Path(__file__).resolve().parent.parent / "weights" / "yolox_s_scene640.npz"
 MARGIN = 0.01
@@ -61,6 +68,12 @@ def assert_rows_match(rows_a, rows_b, class_conf, margin=MARGIN):
                 assert abs(score - dst[j, 4] * dst[j, 5]) < 5e-3
                 matched += 1
     return matched
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        yield redirect_jax_native(mp, tmp_path_factory.mktemp("jax_native"))
 
 
 @pytest.fixture(scope="module")
@@ -103,6 +116,49 @@ def test_program_rows_match_jax(nano, transfer, readback_topk):
     for r in want:
         assert port_program.rows_to_detections(r) == \
             jax_program.rows_to_detections(r)
+
+
+@pytest.mark.parametrize("transfer", ["auto", "host", "yuv420"])
+def test_program_rows_match_jax_without_cv2(nano, monkeypatch, transfer):
+    """With cv2 blocked in both packages, frames larger than the input are
+    resized on the host by each package's native frameio (the same code and
+    flags, so the same bytes), and the rows match."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    variables, state = nano
+    jprog, pprog = _pair(dict(input_hw=(128, 128), max_det=100,
+                              pre_nms_topk=200, transfer=transfer),
+                         variables, state)
+    frames = _frames(2, 288, 512)
+    want = jprog.detect_batch_rows(frames)
+    got = pprog.detect_batch_rows(frames)
+    assert pprog.stats["host_resize"] == "native"
+    assert pprog.stats["host_resize_ms"] > 0
+    assert got.shape == want.shape == (2, 100, 7)
+    conf = port_program.FilterSettings(**FILTERS).to_arrays(80)[
+        "class_conf"].numpy()
+    assert assert_rows_match(got, want, conf) > 0, "no confident rows"
+
+
+@pytest.mark.parametrize("transfer,hw", [("auto", (96, 160)),
+                                         ("yuv420", (64, 64))])
+def test_host_paths_without_cv2_or_compiler_raise(monkeypatch, tmp_path,
+                                                  transfer, hw):
+    """No cv2 and no compiler for the native library: a host resize raises
+    the reference's error, with the build's reason, and the YUV packer
+    raises too; neither falls back to another route."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(port_native, "LIBRARY", cuda_build.HostLibrary(
+        "frameio.cpp", port_native._declare))
+    prog = port_program.DetectorProgram(
+        port_program.ProgramSpec(variant="yolox-nano", input_hw=(64, 64),
+                                 transfer=transfer), device="cpu")
+    match = ("host-resize needs cv2 or the native frameio library.*"
+             if transfer == "auto" else "") + "g\\+\\+ not found"
+    with pytest.raises(RuntimeError, match=match):
+        prog.detect_batch_rows(np.zeros((1, *hw, 3), np.uint8))
+    assert prog.stats["batches"] == 0
 
 
 def test_filters_and_compaction_match_jax(nano):

@@ -1,4 +1,7 @@
 """Shared inputs of the port's parity tests (tests/test_torch_*.py)."""
+import shutil
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -121,3 +124,22 @@ def flax_rtdetr_variables(model, size: int, seed: int = 7):
         return jnp.asarray(value.astype(np.float32))
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def redirect_jax_native(monkeypatch, tmp_dir):
+    """Point the JAX package's native frameio wrapper
+    (``telescope_cam_detection_tpu/utils/native.py``) at a copy of
+    ``native/`` under ``tmp_dir``, unloaded: a library it builds goes there,
+    never into the repository's ``native/``, where another test process may
+    be building or loading its own at the same time."""
+    from telescope_cam_detection_tpu.utils import native
+    copy = Path(tmp_dir) / "native"
+    copy.mkdir()
+    for name in ("frameio.cpp", "Makefile"):
+        shutil.copy(Path(__file__).resolve().parent.parent / "native" / name,
+                    copy / name)
+    monkeypatch.setattr(native, "_NATIVE_DIR", copy)
+    monkeypatch.setattr(native, "_LIB_PATH", copy / "libframeio.so")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    return native
